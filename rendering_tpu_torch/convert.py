@@ -11,9 +11,13 @@ flattens the JAX scene, e.g.
     static = dataclasses.asdict(scene.static)
 
 Keys are dotted paths ("cam_pos", "meshes.0.v", "lights.1.color").
-Only the canonical arrays are read; the mesh gather table, the packed
-map table and the kernel chunk tables are rebuilt from them exactly as
-`models.scene.build_scene` builds them.
+Only the canonical arrays are read; the kernel chunk tables (per mesh,
+or fused for two or more meshes) are rebuilt from them exactly as
+`models.scene.build_scene` builds them, and the gather tables are
+derived in each render.
+
+`params_from_numpy` carries a JAX parameter dict (`diff.inverse`
+extract_params, as numpy) across in the same way.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from rendering_tpu_torch.models.scene import (
     SceneData,
     SceneStatic,
     check_supported,
+    fused_tables,
     mesh_data,
 )
 from rendering_tpu_torch.models.settings import RenderSettings
@@ -84,8 +89,10 @@ def scene_from_numpy(leaves: dict[str, np.ndarray], static: dict,
         meshes.append(mesh_data(
             ms, arr("v"), arr("n"), arr("uv"), arr("tangent"),
             arr("bitangent"), arr("diffuse_map"), arr("normal_map"),
-            arr("specular_map"),
+            arr("specular_map"), fused=st.n_meshes >= 2,
         ))
+    ft, fts = fused_tables(
+        st, [leaves[f"meshes.{i}.v"] for i in range(st.n_meshes)])
     lights = tuple(
         LightData(**{k: t(f"lights.{i}.{k}") for k in _LIGHT_KEYS},
                   kind=kind, samples=samples)
@@ -97,6 +104,18 @@ def scene_from_numpy(leaves: dict[str, np.ndarray], static: dict,
         meshes=tuple(meshes),
         lights=lights,
         skybox=t("skybox") if "skybox" in leaves else None,
+        fused_itables=ft,
+        fused_shadow_itables=fts,
         static=st,
     )
     return scene.to(device)
+
+
+def params_from_numpy(params: dict[str, np.ndarray], device=None) -> dict:
+    """The port's parameter dict (`diff.inverse.extract_params` keys ->
+    leaf tensors that require grad) from a JAX parameter dict read as
+    numpy. Runs on the CUDA device unless `device` says otherwise."""
+    device = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v), dtype=torch.float32,
+                            device=device).requires_grad_(True)
+            for k, v in params.items()}

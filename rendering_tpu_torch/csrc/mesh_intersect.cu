@@ -3,7 +3,14 @@
 // Replaces the Pallas TPU kernel rendering_tpu/ops/pallas_intersect.py
 // ::_kernel (its _cull_and_intersect and _intersect_chunk bodies), in
 // its two modes: closest hit (anyhit=False, primary rays) and any hit
-// (anyhit=True, batched shadow rays).
+// (anyhit=True, batched shadow rays); and its fused multi-mesh entry
+// intersect_fused (pallas_intersect.py:1154), whose tables concatenate
+// every mesh's supers. Over fused tables the walk is the same; the
+// fused closest hit remaps the winning chunk-space slot to (mesh sub
+// index, global gather column) through idmap in its epilogue, so no
+// separate pass over the rays gathers them. Pad cull chunks then sit
+// inside the table (each mesh pads to whole supers); their inverted
+// boxes fail the explicit lo.x > hi.x test below.
 //
 // Work layout. One CTA per 512-ray tile, one ray per thread. The CTA
 // walks its tile's live super-chunk list (torder/counts, from the
@@ -57,16 +64,19 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
-template <bool ANYHIT>
+template <bool ANYHIT, bool FUSED>
 __global__ void __launch_bounds__(kRayTile)
 mesh_intersect_kernel(const float* __restrict__ tri,    // (Cs, 16, n_sub*tc)
                       const float* __restrict__ cbox,   // (Cs*n_sub, 8)
                       const float* __restrict__ aux,    // (10, rp)
                       const int* __restrict__ torder,   // (n_tiles, Cs)
                       const int* __restrict__ counts,   // (n_tiles,)
+                      const int* __restrict__ idmap,    // (2, n_pad), FUSED only
                       float* __restrict__ t_out,        // (rp,)
-                      int* __restrict__ tri_out,        // (rp,)
-                      int rp, int cs, int n_sub, int tc, int backface) {
+                      int* __restrict__ tri_out,        // (rp,) tri, or mid if FUSED
+                      int* __restrict__ vid_out,        // (rp,), FUSED only
+                      int rp, int cs, int n_sub, int tc, int n_pad,
+                      int backface) {
   __shared__ float s_box[kMaxSub][6];
   __shared__ float s_tri[9][kPiece];
 
@@ -150,21 +160,31 @@ mesh_intersect_kernel(const float* __restrict__ tri,    // (Cs, 16, n_sub*tc)
       }
     }
   }
-  t_out[r] = t_best;
-  tri_out[r] = tri_best;
+  if (FUSED) {
+    const bool found = tri_best >= 0;
+    t_out[r] = found ? t_best : kFmax;
+    tri_out[r] = found ? idmap[tri_best] : -1;
+    vid_out[r] = found ? idmap[(long)n_pad + tri_best] : 0;
+  } else {
+    t_out[r] = t_best;
+    tri_out[r] = tri_best;
+  }
 }
 
-template <bool ANYHIT>
+template <bool ANYHIT, bool FUSED>
 int launch(const void* tri, const void* cbox, const void* aux, const void* torder,
-           const void* counts, void* t_out, void* tri_out, int n_tiles, int rp,
-           int cs, int n_sub, int tc, int backface, void* stream) {
-  if (n_sub < 1 || n_sub > kMaxSub || tc % kPiece != 0 || rp != n_tiles * kRayTile) {
+           const void* counts, const void* idmap, void* t_out, void* tri_out,
+           void* vid_out, int n_tiles, int rp, int cs, int n_sub, int tc, int n_pad,
+           int backface, void* stream) {
+  if (n_sub < 1 || n_sub > kMaxSub || tc % kPiece != 0 || rp != n_tiles * kRayTile ||
+      (FUSED && n_pad != cs * n_sub * tc)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_tiles == 0) return 0;
-  mesh_intersect_kernel<ANYHIT><<<n_tiles, kRayTile, 0, (cudaStream_t)stream>>>(
+  mesh_intersect_kernel<ANYHIT, FUSED><<<n_tiles, kRayTile, 0, (cudaStream_t)stream>>>(
       (const float*)tri, (const float*)cbox, (const float*)aux, (const int*)torder,
-      (const int*)counts, (float*)t_out, (int*)tri_out, rp, cs, n_sub, tc, backface);
+      (const int*)counts, (const int*)idmap, (float*)t_out, (int*)tri_out,
+      (int*)vid_out, rp, cs, n_sub, tc, n_pad, backface);
   return (int)cudaGetLastError();
 }
 
@@ -178,17 +198,33 @@ int rt_closest_hit(const void* tri, const void* cbox, const void* aux,
                    const void* torder, const void* counts, void* t_out,
                    void* tri_out, int n_tiles, int rp, int cs, int n_sub,
                    int tc, int backface, void* stream) {
-  return launch<false>(tri, cbox, aux, torder, counts, t_out, tri_out, n_tiles,
-                       rp, cs, n_sub, tc, backface, stream);
+  return launch<false, false>(tri, cbox, aux, torder, counts, nullptr, t_out,
+                              tri_out, nullptr, n_tiles, rp, cs, n_sub, tc, 0,
+                              backface, stream);
 }
 
 // Any hit: (-1, 0) when some triangle is hit below t0, else (t0, -1).
+// Over fused tables this is K5's any hit.
 int rt_any_hit(const void* tri, const void* cbox, const void* aux,
                const void* torder, const void* counts, void* t_out,
                void* tri_out, int n_tiles, int rp, int cs, int n_sub, int tc,
                int backface, void* stream) {
-  return launch<true>(tri, cbox, aux, torder, counts, t_out, tri_out, n_tiles,
-                      rp, cs, n_sub, tc, backface, stream);
+  return launch<true, false>(tri, cbox, aux, torder, counts, nullptr, t_out,
+                             tri_out, nullptr, n_tiles, rp, cs, n_sub, tc, 0,
+                             backface, stream);
+}
+
+// Fused closest hit (K5): (t, mesh sub index, global gather column) of
+// the nearest accepted hit below t0 over fused tables, through idmap
+// (2, n_pad); (FLT_MAX, -1, 0) on a miss.
+int rt_closest_hit_fused(const void* tri, const void* cbox, const void* aux,
+                         const void* torder, const void* counts,
+                         const void* idmap, void* t_out, void* mid_out,
+                         void* vid_out, int n_tiles, int rp, int cs, int n_sub,
+                         int tc, int n_pad, int backface, void* stream) {
+  return launch<false, true>(tri, cbox, aux, torder, counts, idmap, t_out,
+                             mid_out, vid_out, n_tiles, rp, cs, n_sub, tc,
+                             n_pad, backface, stream);
 }
 
 const char* rt_error_string(int code) {

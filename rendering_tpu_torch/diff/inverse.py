@@ -1,0 +1,140 @@
+"""Inverse rendering — gradient descent on scene parameters, the port of
+`rendering_tpu.diff.inverse` on torch autograd.
+
+render -> pixel loss against a target image -> `backward` through the
+integrator -> optimizer step, on any float tensor of the SceneData:
+light intensities and colours, object colours and materials, sphere
+and plane geometry, mesh vertices, normals, uvs and maps.
+
+Parameters are addressed by paths into the SceneData, e.g.
+
+    ("lights", 0, "intensity")
+    ("obj_color",)
+    ("meshes", 0, "v")
+
+and held in a dict keyed by the path joined with "/" ("lights/0/
+intensity"), as in the JAX package. Each parameter is a leaf tensor that
+requires grad; `apply_params` returns a new SceneData around them and
+writes nothing in place. The optimizer steps the leaves in place, as
+torch's optimizers do, where optax returns new arrays: no copy of the
+parameters is made per step.
+
+The kernel chunk tables stay as built. A vertex step changes `v`, and
+the gather table that the differentiable hit re-evaluation reads is
+derived from it in every render, but the oracle keeps picking triangles
+from the build-time tables, as the JAX package's does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable, Sequence
+
+import torch
+
+from rendering_tpu_torch.render.pipeline import render_scene
+
+Path = tuple
+
+
+def _key(path: Path) -> str:
+    return "/".join(map(str, path))
+
+
+def _get(node, path: Path):
+    for p in path:
+        node = node[p] if isinstance(p, int) else getattr(node, p)
+    return node
+
+
+def _set(node, path: Path, value):
+    """A copy of `node` with the tensor at `path` replaced by `value`
+    (tuples and dataclasses rebuilt along the path, nothing written)."""
+    p = path[0]
+    child = value if len(path) == 1 else _set(
+        node[p] if isinstance(p, int) else getattr(node, p), path[1:], value)
+    if isinstance(p, int):
+        return node[:p] + (child,) + node[p + 1:]
+    return dataclasses.replace(node, **{p: child})
+
+
+def extract_params(scene, paths: Sequence[Path]) -> dict:
+    """{"/"-joined path: leaf tensor}: a copy of each addressed tensor,
+    detached from the scene, that requires grad."""
+    return {_key(p): _get(scene, p).detach().clone().requires_grad_(True)
+            for p in paths}
+
+
+def apply_params(scene, params: dict, paths: Sequence[Path]):
+    """A new SceneData holding params[key] at each path."""
+    for p in paths:
+        scene = _set(scene, tuple(p), params[_key(p)])
+    return scene
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms(True) for the block, then the
+    previous mode: on CUDA, an op whose backward may accumulate with
+    atomics (the gathers vgeoT[:, idx] and the per-object tables) takes
+    its deterministic kernel or raises. The mode's other effect, filling
+    every new tensor with NaN (torch.utils.deterministic.
+    fill_uninitialized_memory), is off for the block: it guards against
+    reading memory before writing it and decides no bit of a result, and
+    it cost ~13% of the flagship step on an H100 (PERF.md)."""
+    import torch.utils.deterministic as det
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    prev_fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        det.fill_uninitialized_memory = prev_fill
+        torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
+
+
+def adam(params: list) -> torch.optim.Optimizer:
+    """The default optimizer: Adam at lr 1e-2, eps 1e-8 (optax.adam(1e-2),
+    the JAX package's default, has the same update formula)."""
+    return torch.optim.Adam(params, lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_train_step(paths: Sequence[Path],
+                    optimizer: Callable[[list], torch.optim.Optimizer] | None = None,
+                    render_fn=None):
+    """Build (init_fn, step_fn):
+
+        opt_state = init_fn(params)
+        params, opt_state, loss = step_fn(params, opt_state, scene, target)
+
+    `optimizer` builds the torch optimizer over the list of parameter
+    tensors (default `adam`); opt_state is that optimizer. The loss is
+    the mean squared pixel difference between the (3, H, W) frame of
+    `render_fn(scene)` (default: `render_scene`'s frame) and `target`.
+    step_fn returns the same parameter tensors, stepped in place, and
+    the loss of the step, detached. The step runs under
+    `deterministic_algorithms`, so two steps from the same state are
+    bit-equal on the card too."""
+    paths = tuple(tuple(p) for p in paths)
+    optimizer = optimizer or adam
+    if render_fn is None:
+        def render_fn(s):
+            return render_scene(s)[0]
+
+    def init_fn(params: dict):
+        return optimizer(list(params.values()))
+
+    def step_fn(params: dict, opt_state, scene, target):
+        with deterministic_algorithms():
+            opt_state.zero_grad(set_to_none=True)
+            frame = render_fn(apply_params(scene, params, paths))
+            loss = torch.mean((frame - target) ** 2)
+            loss.backward()
+            opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return init_fn, step_fn

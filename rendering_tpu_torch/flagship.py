@@ -1,11 +1,12 @@
-"""Flagship benchmark scene — `rendering_tpu.flagship.build_flagship_scene`
-for the port.
+"""Benchmark scenes — `rendering_tpu.flagship.build_flagship_scene` and
+`build_multimesh_scene` for the port.
 
-The workload is shotgun.scene: a 3840x1080 phong mesh with diffuse,
-normal and specular maps, one point and one distant light. The mesh is
-the deterministic procedural stand-in (a bumpy sphere of n_tris
+The flagship workload is shotgun.scene: a 3840x1080 phong mesh with
+diffuse, normal and specular maps, one point and one distant light. The
+mesh is the deterministic procedural stand-in (a bumpy sphere of n_tris
 triangles, 250k by default); loading the real OBJ comes with the CLI
-slice.
+slice. The multi-mesh scene is a grid of procedural meshes over a floor
+plane, the workload of the fused intersection (K5).
 """
 
 from __future__ import annotations
@@ -143,4 +144,62 @@ def build_flagship_scene(
             obj.normal_map, obj.normal_map_wh = maps["normal"]
             obj.specular_map, obj.specular_map_wh = maps["specular"]
     sd.objects = [obj]
+    return build_scene(sd, device=device)
+
+
+def build_multimesh_scene(
+    width: int = 1920,
+    height: int = 1080,
+    n_meshes: int = 16,
+    tris_per_mesh: int = 5000,
+    settings_overrides: dict | None = None,
+    device=None,
+) -> SceneData:
+    """N-mesh scene: a grid of procedural bumpy spheres (tris_per_mesh
+    triangles each, seeded by their index) over a floor plane, point and
+    distant lights, phong shading — the JAX package's scene of the same
+    name with its procedural meshes, in the same layout, colours,
+    rotations and seeds. The variant with the bunny OBJ at every grid
+    position comes with the scene-file slice (it needs `load_obj` and the
+    reference assets). Runs on the CUDA device unless `device` says
+    otherwise."""
+    st = RenderSettings(
+        width=width, height=height, background_color=(0.52, 0.8, 0.92),
+        enable_ssaa=False,
+    )
+    if settings_overrides:
+        st = st.replace(**settings_overrides)
+    sd = SceneDef(settings=st)
+    sd.lights = [
+        LightDef("point", color=(1, 1, 1), intensity=1.0, pos=(0, 2, 0)),
+        LightDef("distant", color=(1, 1, 1), intensity=0.25,
+                 dir=(0.3, -0.4, -1)),
+    ]
+    cols = max(1, int(np.ceil(np.sqrt(n_meshes))))
+    rows = -(-n_meshes // cols)
+    objects = [
+        ObjectDef("plane", pos=(0, -1.2, 0), normal=(0, 1, 0),
+                  color=(0.85, 0.85, 0.85)),
+    ]
+    size = 1.1
+    for k in range(n_meshes):
+        r, c = divmod(k, cols)
+        pos = (
+            (c - (cols - 1) / 2.0) * 1.4,
+            (r - (rows - 1) / 2.0) * 1.3,
+            -3.0 - 0.45 * ((r + c) % 3),
+        )
+        obj = ObjectDef(
+            "mesh", pos=pos, size=(size, size, size),
+            color=(0.4 + 0.6 * ((k * 7) % 5) / 4.0,
+                   0.4 + 0.6 * ((k * 3) % 5) / 4.0,
+                   0.4 + 0.6 * ((k * 11) % 5) / 4.0),
+            rot=(0.0, float((k * 37) % 360), 0.0),
+            material="phong", ambient=0.3, diffuse=0.4, specular=0.3,
+            n_specular=12.0,
+        )
+        obj.mesh = procedural_mesh(tris_per_mesh, pos=pos,
+                                   size=(size, size, size), seed=k)
+        objects.append(obj)
+    sd.objects = objects
     return build_scene(sd, device=device)

@@ -2,9 +2,12 @@
 
 The scene is a dataclass of tensors with a `.to(device)`: spheres and
 planes as (N, 3) tables, each mesh as Morton-ordered per-triangle
-arrays plus its (30, T) gather table and kernel chunk tables, lights as
-small per-light records. Everything that decides shapes or branches
-lives in `SceneStatic`.
+arrays plus its kernel chunk tables (or, with two or more meshes, the
+scene's fused tables), lights as small per-light records. The gather
+tables that surface shading reads (vgeoT, mapsT) are derived from the
+canonical arrays in every render (`render.pipeline.derive_mesh_tables`),
+so gradients reach vertices and texels. Everything that decides shapes
+or branches lives in `SceneStatic`.
 
 Material enum order matches the reference (include/objects.h:17):
 0=Diffuse, 1=Reflective, 2=Transparent, 3=Phong.
@@ -24,7 +27,9 @@ from rendering_tpu_torch.models.objloader import euler_matrix
 from rendering_tpu_torch.models.parser import SceneDef
 from rendering_tpu_torch.models.settings import RenderSettings
 from rendering_tpu_torch.ops.cuda_intersect import (
+    FusedTables,
     IntersectTables,
+    build_fused_tables,
     build_intersect_tables,
     default_tri_chunk,
 )
@@ -132,16 +137,20 @@ class MeshData(_Movable):
     uv: torch.Tensor         # (T, 3, 2)
     tangent: torch.Tensor    # (T, 3)
     bitangent: torch.Tensor  # (T, 3)
-    # One transposed gather table, component-major: rows 0-8 vertices,
-    # 9-17 vertex normals, 18-23 uvs, 24-26 tangent, 27-29 bitangent.
-    vgeoT: torch.Tensor      # (30, T)
     diffuse_map: Optional[torch.Tensor]   # (Hd*Wd, 3) or None
     normal_map: Optional[torch.Tensor]    # (Hn*Wn, 3) or None
     specular_map: Optional[torch.Tensor]  # (Hs*Ws, 1) or None
-    # Packed transposed maps (7, W*H): diffuse rgb | normal xyz |
+    # Kernel chunk tables; None for a mesh without triangles and in a
+    # scene of two or more meshes, which reads the fused tables instead.
+    itables: Optional[IntersectTables]
+    # Derived in each render from the arrays above, None on a built
+    # scene (render.pipeline.derive_mesh_tables):
+    # one transposed gather table, component-major: rows 0-8 vertices,
+    # 9-17 vertex normals, 18-23 uvs, 24-26 tangent, 27-29 bitangent,
+    vgeoT: Optional[torch.Tensor] = None  # (30, T)
+    # and the packed transposed maps (7, W*H): diffuse rgb | normal xyz |
     # specular, zero rows for absent maps; None unless pmap_wh is set.
-    mapsT: Optional[torch.Tensor]
-    itables: Optional[IntersectTables]    # None for a mesh without triangles
+    mapsT: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -177,11 +186,27 @@ class SceneData(_Movable):
     meshes: tuple            # tuple[MeshData, ...]
     lights: tuple            # tuple[LightData, ...]
     skybox: Optional[torch.Tensor]  # (6, H, W, 3)
+    # With two or more meshes: the fused chunk tables of every mesh (one
+    # K5 launch per query) and the shadow tables, which leave out
+    # transparent meshes and are the same object when none is.
+    fused_itables: Optional[FusedTables] = None
+    fused_shadow_itables: Optional[FusedTables] = None
+    # The meshes' vgeoT concatenated (30, T_total), derived in each render
+    # of a fused scene; the fused oracle's vid indexes its columns.
+    fused_vgeoT: Optional[torch.Tensor] = None
     static: SceneStatic = None
 
     @property
     def device(self) -> torch.device:
         return self.cam_pos.device
+
+    def to(self, device):
+        """A copy with every tensor on `device`; shadow tables that alias
+        the fused tables stay one object."""
+        out = super().to(device)
+        if self.fused_shadow_itables is self.fused_itables:
+            out.fused_shadow_itables = out.fused_itables
+        return out
 
 
 def _packable_wh(whs) -> tuple[int, int]:
@@ -194,53 +219,49 @@ def _packable_wh(whs) -> tuple[int, int]:
 
 
 def mesh_data(ms: MeshStatic, v, n, uv, tangent, bitangent,
-              diffuse_map=None, normal_map=None, specular_map=None) -> MeshData:
-    """MeshData from host numpy arrays already in Morton order: builds
-    the (30, T) gather table, the packed map table and the kernel chunk
-    tables (host numpy), all as CPU tensors."""
+              diffuse_map=None, normal_map=None, specular_map=None, *,
+              fused: bool = False) -> MeshData:
+    """MeshData from host numpy arrays already in Morton order, as CPU
+    tensors, with the kernel chunk tables (host numpy) unless the scene
+    fuses its meshes (`fused`)."""
     t_count = ms.n_tris
-    f32 = np.float32
-    vgeoT = np.concatenate([
-        np.asarray(v, f32).reshape(t_count, 9).T,
-        np.asarray(n, f32).reshape(t_count, 9).T,
-        np.asarray(uv, f32).reshape(t_count, 6).T,
-        np.asarray(tangent, f32).T,
-        np.asarray(bitangent, f32).T,
-    ], axis=0)
-    mapsT = None
-    if ms.has_packed_maps:
-        n_tex = ms.pmap_wh[0] * ms.pmap_wh[1]
-        z3 = np.zeros((3, n_tex), f32)
-        mapsT = np.concatenate([
-            np.asarray(diffuse_map, f32).T if diffuse_map is not None else z3,
-            np.asarray(normal_map, f32).T if normal_map is not None else z3,
-            (np.asarray(specular_map, f32).reshape(1, n_tex)
-             if specular_map is not None else z3[:1]),
-        ], axis=0)
 
     def tensor(a):
-        return None if a is None else torch.from_numpy(np.array(a, dtype=f32))
+        return (None if a is None
+                else torch.from_numpy(np.array(a, dtype=np.float32)))
 
     return MeshData(
         v=tensor(v), n=tensor(n), uv=tensor(uv), tangent=tensor(tangent),
-        bitangent=tensor(bitangent), vgeoT=tensor(vgeoT),
-        diffuse_map=tensor(diffuse_map), normal_map=tensor(normal_map),
-        specular_map=tensor(specular_map), mapsT=tensor(mapsT),
+        bitangent=tensor(bitangent), diffuse_map=tensor(diffuse_map),
+        normal_map=tensor(normal_map), specular_map=tensor(specular_map),
         itables=(build_intersect_tables(
-            v, tri_chunk=default_tri_chunk(t_count)) if t_count else None),
+            v, tri_chunk=default_tri_chunk(t_count))
+            if t_count and not fused else None),
     )
+
+
+def fused_tables(static: SceneStatic, vs):
+    """(fused_itables, fused_shadow_itables) of a scene whose meshes have
+    Morton-ordered vertices vs (host numpy, scene sub order): both None
+    with fewer than two meshes; the shadow tables leave out transparent
+    meshes (scene.cpp:733-734) and are the fused tables themselves when
+    every mesh is opaque (None when every mesh is transparent)."""
+    if static.n_meshes < 2:
+        return None, None
+    clipped = [ms.clipped_by_root for ms in static.meshes]
+    ft = build_fused_tables(vs, clipped)
+    mesh_mats = [m for k, m in zip(static.obj_kinds, static.mat_types)
+                 if k == KIND_MESH]
+    opaque = [m != MAT_TRANSPARENT for m in mesh_mats]
+    if all(opaque):
+        return ft, ft
+    return ft, build_fused_tables(vs, clipped, include=opaque)
 
 
 def check_supported(static: SceneStatic) -> None:
     """Raise NotImplementedError for scene features whose kernels or
     modules have not been ported yet, rather than render something
     else."""
-    if static.n_meshes >= 2:
-        raise NotImplementedError(
-            "scenes with two or more meshes need the fused multi-mesh "
-            "intersection (pallas_intersect.intersect_fused, K5), which "
-            "comes with the multi-mesh slice of the port"
-        )
     st = static.settings
     if st.use_ac and any(ms.clipped_by_root for ms in static.meshes):
         raise NotImplementedError(
@@ -261,7 +282,10 @@ def build_scene(sd: SceneDef, device=None) -> SceneData:
     colors, iors, ambients, diffuses, speculars, nspecs = [], [], [], [], [], []
     sph_pos, sph_r = [], []
     pln_pos, pln_n = [], []
-    meshes, mesh_statics = [], []
+    meshes, mesh_statics, mesh_vs = [], [], []
+    # Two or more meshes go through the fused tables alone, so the
+    # per-mesh chunk tables are not built (the JAX package's will_fuse).
+    fused = sum(1 for o in sd.objects if o.kind == "mesh") >= 2
 
     for o in sd.objects:
         mat_types.append(_MAT_IDS[o.material])
@@ -314,8 +338,10 @@ def build_scene(sd: SceneDef, device=None) -> SceneData:
                 clipped_by_root=clipped,
             )
             mesh_statics.append(ms)
+            mesh_vs.append(v)
             meshes.append(mesh_data(ms, v, nrm, uv, tan, bit, o.diffuse_map,
-                                    o.normal_map, o.specular_map))
+                                    o.normal_map, o.specular_map,
+                                    fused=fused))
         else:
             raise ValueError(f"unknown object kind {o.kind}")
 
@@ -346,6 +372,7 @@ def build_scene(sd: SceneDef, device=None) -> SceneData:
     )
     no = len(sd.objects)
     scale = np.tan(f32(st.fov) * f32(0.5) / f32(180.0) * f32(np.pi))
+    ft, fts = fused_tables(static, mesh_vs)
     scene = SceneData(
         cam_pos=t(np.asarray(sd.cam_pos, f32)),
         cam_rmat=t(euler_matrix(sd.cam_rot)),
@@ -366,6 +393,8 @@ def build_scene(sd: SceneDef, device=None) -> SceneData:
         meshes=tuple(meshes),
         lights=lights,
         skybox=t(sd.skybox) if sd.skybox is not None else None,
+        fused_itables=ft,
+        fused_shadow_itables=fts,
         static=static,
     )
     return scene.to(device)

@@ -4,7 +4,10 @@ per-tile pre-pass.
 
 The kernels (csrc/mesh_intersect.cu) replace the Pallas TPU kernel
 `rendering_tpu/ops/pallas_intersect.py::_kernel` in its two modes:
-closest hit for primary rays and any hit for the batched shadow rays.
+closest hit for primary rays and any hit for the batched shadow rays
+(K1, K2), and its fused multi-mesh entry `intersect_fused` (K5): the
+same walk over every mesh's tables concatenated, with the closest hit
+remapped to (mesh, gather column) through an idmap in the epilogue.
 They are bound by f32 operations (57 instructions per ray-triangle pair,
 each issued alone under -fmad=false; the tables are only ~16 MB at 250k
 triangles), so the design keeps triangle rows in shared memory for a
@@ -60,7 +63,12 @@ NVCC_FLAGS = [
 @dataclasses.dataclass
 class IntersectTables:
     """Morton-ordered chunk tables of one mesh (the baked acceleration
-    structure; rebuild after any geometry update).
+    structure; rebuild after any geometry update that should move the
+    discrete hits). The train step (`diff.inverse`) does not rebuild
+    them, as in the JAX package: after a vertex step the oracle still
+    picks triangles from the build-time tables, and only the
+    differentiable re-evaluation of the picked triangle sees the new
+    vertices.
 
     tri:  (Cs, 16, n_sub*tc) f32 — rows v0 xyz, e1 xyz, e2 xyz, then
           zeros (rows 9-14 hold the root filter's reach boxes in the JAX
@@ -97,6 +105,13 @@ def build_intersect_tables(v: np.ndarray, *, tri_chunk: int,
     v (T, 3, 3) — `pallas_intersect.build_intersect_tables` without the
     reach rows. Zero-padded triangles fail the det epsilon in both
     culling modes; padded cull chunks get inverted boxes."""
+    n_sub, tri, cbox, sbox = _table_arrays(v, tri_chunk, n_sub)
+    return IntersectTables(tri_chunk, n_sub, torch.from_numpy(tri),
+                           torch.from_numpy(cbox), torch.from_numpy(sbox))
+
+
+def _table_arrays(v, tri_chunk: int, n_sub: int | None):
+    """(n_sub, tri, cbox, sbox) of `build_intersect_tables` as numpy."""
     v = np.asarray(v, np.float32)
     T = int(v.shape[0])
     if T == 0:
@@ -133,10 +148,76 @@ def build_intersect_tables(v: np.ndarray, *, tri_chunk: int,
         ],
         axis=1,
     ).astype(np.float32)
-    return IntersectTables(
-        tri_chunk, n_sub, torch.from_numpy(tri), torch.from_numpy(cbox),
-        torch.from_numpy(sbox),
+    return n_sub, tri, cbox, sbox
+
+
+@dataclasses.dataclass
+class FusedTables:
+    """The chunk tables of several meshes concatenated along the super
+    axis, for one kernel launch over all of them (the JAX package's
+    `pallas_intersect.FusedTables`).
+
+    geo:    IntersectTables over the fused chunk space (one tri_chunk,
+            n_sub = 8 for every mesh, so each mesh pads to whole supers
+            and pad cull chunks sit inside the table).
+    idmap:  (2, n_pad) int32 — per fused triangle slot, the mesh's scene
+            sub index and its global column in the meshes' concatenated
+            (30, T_total) gather table; pad slots alias their mesh's
+            last real triangle.
+    n_meshes, t_total: all meshes of the scene and their triangle total
+            (excluded meshes still advance the column offsets).
+    any_clipped: some included mesh pokes outside its root box."""
+
+    geo: IntersectTables
+    idmap: torch.Tensor
+    n_meshes: int
+    any_clipped: bool
+    t_total: int
+
+    def to(self, device) -> "FusedTables":
+        return dataclasses.replace(self, geo=self.geo.to(device),
+                                   idmap=self.idmap.to(device))
+
+
+def build_fused_tables(vs, clipped_flags, include=None) -> FusedTables | None:
+    """Host numpy build of the fused tables from every mesh's
+    Morton-ordered vertices vs[i] (T_i, 3, 3), in scene sub order, equal
+    bit for bit to `pallas_intersect.build_fused_tables` in the table
+    rows 0-8, cbox, sbox and idmap. include[i] False leaves mesh i out
+    (the shadow tables leave out transparent meshes). Returns None when
+    no included mesh has triangles."""
+    n = len(vs)
+    if include is None:
+        include = [True] * n
+    ts = [int(np.shape(v)[0]) for v in vs]
+    t_total_inc = sum(t for t, inc in zip(ts, include) if inc)
+    if t_total_inc == 0:
+        return None
+    # One chunk shape for all meshes, sized by the included total.
+    tc = default_tri_chunk(t_total_inc)
+    tris, cboxes, sboxes, mids, vids = [], [], [], [], []
+    vofs = 0
+    any_clipped = False
+    for i, v in enumerate(vs):
+        t_i = ts[i]
+        if include[i] and t_i:
+            any_clipped = any_clipped or bool(clipped_flags[i])
+            _, tri, cbox, sbox = _table_arrays(v, tc, SUB_PER_SUPER)
+            tris.append(tri)
+            cboxes.append(cbox)
+            sboxes.append(sbox)
+            n_pad = tri.shape[0] * SUB_PER_SUPER * tc
+            mids.append(np.full((n_pad,), i, np.int32))
+            vids.append((vofs + np.minimum(np.arange(n_pad), t_i - 1))
+                        .astype(np.int32))
+        vofs += t_i
+    geo = IntersectTables(
+        tc, SUB_PER_SUPER,
+        *(torch.from_numpy(np.concatenate(a, axis=0))
+          for a in (tris, cboxes, sboxes)),
     )
+    idmap = np.stack([np.concatenate(mids), np.concatenate(vids)], axis=0)
+    return FusedTables(geo, torch.from_numpy(idmap), n, any_clipped, vofs)
 
 
 # ---- pre-pass --------------------------------------------------------
@@ -381,8 +462,12 @@ def _library():
     if _lib is None:
         path, _ = build_library()
         lib = ctypes.CDLL(path)
-        args = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        for name in ("rt_closest_hit", "rt_any_hit"):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for name, args in (
+            ("rt_closest_hit", [ptr] * 7 + [i32] * 6 + [ptr]),
+            ("rt_any_hit", [ptr] * 7 + [i32] * 6 + [ptr]),
+            ("rt_closest_hit_fused", [ptr] * 9 + [i32] * 7 + [ptr]),
+        ):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -394,21 +479,30 @@ def _library():
 
 class CudaKernel:
     """One launcher of csrc/mesh_intersect.cu. `launches` counts the
-    launches made through it."""
+    launches made through it. A fused launcher (`rt_closest_hit_fused`)
+    also takes the fused tables' idmap."""
 
-    def __init__(self, symbol: str):
+    def __init__(self, symbol: str, fused: bool = False):
         self.symbol = symbol
+        self.fused = fused
         self.launches = 0
 
     def __call__(self, tb: IntersectTables, prep: Prepared, *,
-                 backface_culling: bool):
-        """Raw (t (Rp,), tri (Rp,) int32) in padded chunk-space ids."""
+                 backface_culling: bool, idmap: torch.Tensor | None = None):
+        """Raw (t (Rp,), tri (Rp,) int32) in padded chunk-space ids; a
+        fused launcher returns (t, mid, vid) through idmap instead, with
+        t = FMAX, mid = -1 and vid = 0 on a miss."""
         aux = prep.aux
-        for name, x, dt in (("tri", tb.tri, torch.float32),
-                            ("cbox", tb.cbox, torch.float32),
-                            ("aux", aux, torch.float32),
-                            ("torder", prep.torder, torch.int32),
-                            ("counts", prep.counts, torch.int32)):
+        checks = [("tri", tb.tri, torch.float32),
+                  ("cbox", tb.cbox, torch.float32),
+                  ("aux", aux, torch.float32),
+                  ("torder", prep.torder, torch.int32),
+                  ("counts", prep.counts, torch.int32)]
+        if self.fused:
+            if idmap is None:
+                raise ValueError(f"{self.symbol}: needs the fused idmap")
+            checks.append(("idmap", idmap, torch.int32))
+        for name, x, dt in checks:
             if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
                 raise ValueError(f"{self.symbol}: {name} must be a contiguous "
                                  f"CUDA {dt} tensor, got {x.dtype} on "
@@ -416,28 +510,41 @@ class CudaKernel:
         if tb.tri_chunk % _PIECE:
             raise ValueError(f"{self.symbol}: tri_chunk must be a multiple of "
                              f"{_PIECE}, got {tb.tri_chunk}")
+        cs = tb.sbox.shape[0]
+        n_pad = cs * tb.n_sub * tb.tri_chunk
+        if self.fused and tuple(idmap.shape) != (2, n_pad):
+            raise ValueError(f"{self.symbol}: idmap must be (2, {n_pad}), got "
+                             f"{tuple(idmap.shape)}")
         lib = _library()
         n_tiles = prep.n_tiles
         rp = aux.shape[1]
-        t = torch.empty((rp,), dtype=torch.float32, device=aux.device)
-        tri = torch.empty((rp,), dtype=torch.int32, device=aux.device)
+        outs = [torch.empty((rp,), dtype=torch.float32, device=aux.device)]
+        outs += [torch.empty((rp,), dtype=torch.int32, device=aux.device)
+                 for _ in range(2 if self.fused else 1)]
+        ins = [tb.tri, tb.cbox, aux, prep.torder, prep.counts]
+        ints = [n_tiles, rp, cs, tb.n_sub, tb.tri_chunk]
+        if self.fused:
+            ins.append(idmap)
+            ints.append(n_pad)
         with torch.cuda.device(aux.device):  # launch on the tensors' card
             rc = getattr(lib, self.symbol)(
-                tb.tri.data_ptr(), tb.cbox.data_ptr(), aux.data_ptr(),
-                prep.torder.data_ptr(), prep.counts.data_ptr(), t.data_ptr(),
-                tri.data_ptr(), n_tiles, rp, tb.sbox.shape[0], tb.n_sub,
-                tb.tri_chunk, int(backface_culling),
+                *(x.data_ptr() for x in ins + outs), *ints,
+                int(backface_culling),
                 torch.cuda.current_stream(aux.device).cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: "
                                f"{lib.rt_error_string(rc).decode()}")
         self.launches += 1
-        return t, tri
+        return tuple(outs)
 
 
 closest_hit_kernel = CudaKernel("rt_closest_hit")
 any_hit_kernel = CudaKernel("rt_any_hit")
+# K5: the fused closest hit remaps through idmap in its epilogue; the
+# fused any hit is K2's entry over the fused tables, counted apart.
+fused_closest_hit_kernel = CudaKernel("rt_closest_hit_fused", fused=True)
+fused_any_hit_kernel = CudaKernel("rt_any_hit")
 
 
 def run_query(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
@@ -475,3 +582,61 @@ def any_hit(tb: IntersectTables, ro3, rd3, t_limit=None, *,
     _, tri = run_query(tb, prep, anyhit=True,
                        backface_culling=backface_culling)
     return tri[:prep.n_rays] >= 0
+
+
+# ---- K5: one query over the fused tables of every mesh -------------------
+
+
+def fused_remap(idmap, t, tri):
+    """Raw (t, chunk-space tri) -> (t, mid, vid) through idmap: t = FMAX,
+    mid = -1, vid = 0 where nothing was hit (vid stays gather-safe)."""
+    found = tri >= 0
+    mv = idmap[:, torch.clamp_min(tri, 0).long()]
+    return (torch.where(found, t, FMAX), torch.where(found, mv[0], -1),
+            torch.where(found, mv[1], 0))
+
+
+@torch.no_grad()
+def intersect_fused_plain(ft: FusedTables, prep: Prepared, *, anyhit: bool,
+                          backface_culling: bool, stats: dict | None = None):
+    """K5's function in plain PyTorch: the single-mesh plain version over
+    the fused geometry, then the idmap remap in closest mode. Returns
+    (t, mid, vid) (closest) or raw (t, tri) (any), all (Rp,)."""
+    t, tri = intersect_plain(ft.geo, prep, anyhit=anyhit,
+                             backface_culling=backface_culling, stats=stats)
+    return (t, tri) if anyhit else fused_remap(ft.idmap, t, tri)
+
+
+def run_fused_query(ft: FusedTables, prep: Prepared, *, anyhit: bool,
+                    backface_culling: bool):
+    """K5 for CUDA tensors, its plain version for CPU tensors."""
+    if prep.aux.is_cuda:
+        if anyhit:
+            return fused_any_hit_kernel(ft.geo, prep,
+                                        backface_culling=backface_culling)
+        return fused_closest_hit_kernel(ft.geo, prep, idmap=ft.idmap,
+                                        backface_culling=backface_culling)
+    if prep.aux.device.type != "cpu":
+        raise ValueError(f"no intersection path for device {prep.aux.device}")
+    return intersect_fused_plain(ft, prep, anyhit=anyhit,
+                                 backface_culling=backface_culling)
+
+
+@torch.no_grad()
+def intersect_fused(ft: FusedTables, ro3, rd3, t_limit=None, *,
+                    mode: str = "closest", backface_culling: bool = True):
+    """One query over every fused mesh (`pallas_intersect.intersect_fused`
+    without its root filter and counters). mode="closest" returns (t,
+    mid, vid) (R,): the winner's mesh sub index (-1 on a miss) and its
+    global gather-table column (0 on a miss); cross-mesh ties at equal t
+    resolve by chunk visit order, as within one mesh. mode="any" returns
+    occluded (R,) bool; rays entering with t_limit < 0 cost nothing."""
+    if mode not in ("closest", "any"):
+        raise ValueError(f"mode must be 'closest' or 'any', got {mode!r}")
+    prep = prepare(ft.geo, ro3, rd3, t_limit)
+    n = prep.n_rays
+    out = run_fused_query(ft, prep, anyhit=mode == "any",
+                          backface_culling=backface_culling)
+    if mode == "any":
+        return out[1][:n] >= 0
+    return tuple(x[:n] for x in out)

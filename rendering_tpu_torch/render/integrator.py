@@ -7,7 +7,9 @@ Discrete hit topology (the mesh oracle, the object argmin, shadow
 visibility) is computed under torch.no_grad; hit t/u/v are then
 re-evaluated from gathered triangle rows with plain tensor math, so the
 render stays differentiable with fixed topology. Nothing writes in place
-into scene tensors.
+into scene tensors. A scene of one mesh queries that mesh's tables (K1,
+K2); a scene of two or more queries the fused tables of all of them at
+once (K5). The gather tables come from `pipeline.derive_mesh_tables`.
 
 Reflective and transparent materials (continuation rays, the queue
 compaction) come with the bouncing slice: `integrate` raises
@@ -94,12 +96,77 @@ def _per_obj3(table, obj, n_objects: int):
     return table.T[:, obj]
 
 
+def _mesh_hits(scene, ro3, rd3, t_limit):
+    """Per-mesh closest hits, one query per mesh (K1): lists over meshes
+    of (t, tri, u, v, geo), t re-evaluated and differentiable, FLT_MAX
+    where the mesh is not hit."""
+    settings = scene.static.settings
+    q = ro3.shape[1]
+    dev = ro3.device
+    cols = [], [], [], [], []
+    for mesh in scene.meshes:
+        if mesh.itables is None:  # a mesh without triangles
+            hit = (torch.full((q,), FLT_MAX, device=dev),
+                   torch.full((q,), -1, dtype=torch.int32, device=dev),
+                   torch.zeros((q,), device=dev), torch.zeros((q,), device=dev),
+                   torch.zeros((30, q), device=dev))
+        else:
+            _, tri_d = cuda_intersect.closest_hit(
+                mesh.itables, ro3.detach(), rd3.detach(),
+                t_limit.detach() if t_limit is not None else None,
+                backface_culling=settings.use_backface_culling,
+            )
+            # One gather of every per-triangle surface row: rows 0-8 feed
+            # the differentiable hit re-evaluation, the rest surface_data.
+            g = mesh.vgeoT[:, torch.clamp_min(tri_d, 0).long()]  # (30, Q)
+            t_r, u_r, v_r, _ = ray_triangle_r(
+                ro3, rd3, g[0:3], g[3:6], g[6:9],
+                settings.use_backface_culling
+            )
+            found = tri_d >= 0
+            hit = (torch.where(found, t_r, FLT_MAX),
+                   torch.where(found, tri_d, -1),
+                   torch.where(found, u_r, 0.0), torch.where(found, v_r, 0.0),
+                   g)
+        for col, x in zip(cols, hit):
+            col.append(x)
+    return cols
+
+
+def _fused_mesh_hits(scene, ro3, rd3, t_limit):
+    """_mesh_hits through the fused tables: one query over every mesh
+    (K5). The winner comes back as (mesh sub index, column of the
+    concatenated vgeoT), so the row gather and the re-evaluation also run
+    once; every mesh's geo is that one gathered block."""
+    st = scene.static
+    settings = st.settings
+    _, mid, vid = cuda_intersect.intersect_fused(
+        scene.fused_itables, ro3.detach(), rd3.detach(),
+        t_limit.detach() if t_limit is not None else None,
+        mode="closest", backface_culling=settings.use_backface_culling,
+    )
+    g = scene.fused_vgeoT[:, vid.long()]  # (30, Q); vid is 0 on a miss
+    t_r, u_r, v_r, _ = ray_triangle_r(
+        ro3, rd3, g[0:3], g[3:6], g[6:9], settings.use_backface_culling
+    )
+    cols = [], [], [], [], []
+    vofs = 0  # local triangle ids through the meshes' column offsets
+    for sub, ms in enumerate(st.meshes):
+        selm = mid == sub  # only where the oracle found a hit
+        hit = (torch.where(selm, t_r, FLT_MAX),
+               torch.where(selm, vid - vofs, -1),
+               torch.where(selm, u_r, 0.0), torch.where(selm, v_r, 0.0), g)
+        for col, x in zip(cols, hit):
+            col.append(x)
+        vofs += ms.n_tris
+    return cols
+
+
 def trace_closest(scene, ro3, rd3, *, t_limit=None):
     """Closest hit over all scene objects in scene order
     (Render::trace, src/scene.cpp:724-756). ro3/rd3: (3, Q).
     Returns (Hit, stats)."""
     st = scene.static
-    settings = st.settings
     q = ro3.shape[1]
     dev = ro3.device
     stats = zero_stats()
@@ -109,33 +176,10 @@ def trace_closest(scene, ro3, rd3, *, t_limit=None):
              if st.n_spheres else None)  # (Ns, Q)
     t_pln = (intersect_planes_r(ro3, rd3, scene.pln_pos, scene.pln_n)
              if st.n_planes else None)   # (Np, Q)
-
-    mesh_t, mesh_tri, mesh_u, mesh_v, mesh_geo = [], [], [], [], []
-    for mesh in scene.meshes:
-        if mesh.itables is None:  # a mesh without triangles
-            mesh_t.append(torch.full((q,), FLT_MAX, device=dev))
-            mesh_tri.append(torch.full((q,), -1, dtype=torch.int32, device=dev))
-            mesh_u.append(torch.zeros((q,), device=dev))
-            mesh_v.append(torch.zeros((q,), device=dev))
-            mesh_geo.append(torch.zeros((30, q), device=dev))
-            continue
-        _, tri_d = cuda_intersect.closest_hit(
-            mesh.itables, ro3.detach(), rd3.detach(),
-            t_limit.detach() if t_limit is not None else None,
-            backface_culling=settings.use_backface_culling,
-        )
-        # One gather of every per-triangle surface row: rows 0-8 feed
-        # the differentiable hit re-evaluation, the rest surface_data.
-        g = mesh.vgeoT[:, torch.clamp_min(tri_d, 0).long()]  # (30, Q)
-        t_r, u_r, v_r, _ = ray_triangle_r(
-            ro3, rd3, g[0:3], g[3:6], g[6:9], settings.use_backface_culling
-        )
-        found = tri_d >= 0
-        mesh_t.append(torch.where(found, t_r, FLT_MAX))
-        mesh_tri.append(torch.where(found, tri_d, -1))
-        mesh_u.append(torch.where(found, u_r, 0.0))
-        mesh_v.append(torch.where(found, v_r, 0.0))
-        mesh_geo.append(g)
+    hits = (_fused_mesh_hits if scene.fused_itables is not None
+            else _mesh_hits)
+    mesh_t, mesh_tri, mesh_u, mesh_v, mesh_geo = hits(scene, ro3, rd3,
+                                                      t_limit)
 
     cols = []
     for oi, kind in enumerate(st.obj_kinds):
@@ -174,7 +218,8 @@ def trace_closest(scene, ro3, rd3, *, t_limit=None):
             tri = torch.where(sel, mesh_tri[sub], tri)
             u = torch.where(sel, mesh_u[sub], u)
             v = torch.where(sel, mesh_v[sub], v)
-            geo = (mesh_geo[sub] if geo is None
+            # The fused meshes share one gathered row block.
+            geo = (mesh_geo[sub] if geo is None or geo is mesh_geo[sub]
                    else torch.where(sel[None, :], mesh_geo[sub], geo))
     return Hit(t, obj, hit, tri, u, v, geo), stats
 
@@ -205,6 +250,16 @@ def trace_occlusion(scene, ro3, rd3, dist):
             t = fn(ro3, rd3, pos, prm)
             keep = torch.tensor(mask, device=ro3.device)[:, None]
             occluded = occluded | torch.any(keep & (t < dist[None, :]), dim=0)
+    fts = scene.fused_shadow_itables
+    if fts is not None:
+        # One fused any-hit query (K5) over every opaque mesh; rays that
+        # spheres or planes already occlude enter resolved.
+        dist_m = torch.where(occluded, -1.0, dist)
+        occluded = occluded | cuda_intersect.intersect_fused(
+            fts, ro3, rd3, dist_m, mode="any",
+            backface_culling=settings.use_backface_culling,
+        )
+        return occluded, stats
     for mesh, opq in zip(scene.meshes, opaque(KIND_MESH)):
         if not opq or mesh.itables is None:
             continue

@@ -1,8 +1,12 @@
-"""Render pipeline — the forward primary pass of
-`rendering_tpu.render.pipeline` for non-bouncing scenes.
+"""Render pipeline — the primary pass of `rendering_tpu.render.pipeline`
+for non-bouncing scenes.
 
 Frames are channel-first f32 (3, H, W) tensors on the scene's device;
-`render` returns the usual (H, W, 3) numpy array. Parity quirk kept:
+`render` returns the usual (H, W, 3) numpy array. `render_scene` is
+differentiable (the train step in `diff.inverse` calls it under
+autograd): it derives the gather tables from the scene's canonical
+arrays first, so gradients reach vertices, normals, uvs and texels.
+Parity quirk kept:
 the last pixel row and column are never rendered by the reference (its
 tile clamp, scene.cpp:369-372) and stay black.
 
@@ -12,6 +16,8 @@ NotImplementedError for them instead of rendering something else.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -37,6 +43,38 @@ def _untile(slots3, w: int, h: int):
     tw, th = tile_dims(w, h)
     t = slots3.reshape(3, h // th, w // tw, th, tw)
     return t.permute(0, 1, 3, 2, 4).reshape(3, h, w)
+
+
+def derive_mesh_tables(scene):
+    """The scene with each mesh's gather tables derived from its
+    canonical arrays (JAX `pipeline.derive_mesh_tables`): vgeoT (30, T)
+    rows v | n | uv | tangent | bitangent, and the packed map table mapsT
+    (7, W*H) where the maps share dims; for a fused scene also their
+    concatenation fused_vgeoT (30, T_total). Built once per render, in
+    the autograd graph, so gradients flow back to the arrays."""
+    def tables(m, ms):
+        mapsT = None
+        if ms.has_packed_maps:
+            n_tex = ms.pmap_wh[0] * ms.pmap_wh[1]
+            z3 = torch.zeros((3, n_tex), device=m.v.device)
+            mapsT = torch.cat([
+                m.diffuse_map.T if ms.has_diffuse_map else z3,
+                m.normal_map.T if ms.has_normal_map else z3,
+                (m.specular_map.reshape(1, n_tex) if ms.has_specular_map
+                 else z3[:1]),
+            ], dim=0)
+        vgeoT = torch.cat([
+            m.v.reshape(-1, 9).T, m.n.reshape(-1, 9).T, m.uv.reshape(-1, 6).T,
+            m.tangent.T, m.bitangent.T,
+        ], dim=0)
+        return dataclasses.replace(m, vgeoT=vgeoT, mapsT=mapsT)
+
+    meshes = tuple(tables(m, ms)
+                   for m, ms in zip(scene.meshes, scene.static.meshes))
+    fused_vgeoT = None
+    if scene.fused_itables is not None:
+        fused_vgeoT = torch.cat([m.vgeoT for m in meshes], dim=1)
+    return dataclasses.replace(scene, meshes=meshes, fused_vgeoT=fused_vgeoT)
 
 
 def _primary_pass(scene, *, ray_block=DEFAULT_RAY_BLOCK):
@@ -74,10 +112,12 @@ def _check_slice(scene):
 
 def render_scene(scene, ray_block: int = DEFAULT_RAY_BLOCK,
                  out_u8: bool = False):
-    """Forward render on the scene's device: returns (frame3 (3, H, W)
-    f32, aux dict with the stats counters). `out_u8` quantizes the frame
-    on the device to the BMP writer's u8 codes, (H, W, 3)."""
+    """Render on the scene's device: returns (frame3 (3, H, W) f32, aux
+    dict with the stats counters), differentiable with respect to the
+    scene's float tensors. `out_u8` quantizes the frame on the device to
+    the BMP writer's u8 codes, (H, W, 3)."""
     _check_slice(scene)
+    scene = derive_mesh_tables(scene)
     frame3, stats = _primary_pass(scene, ray_block=ray_block)
     aux = {"stats": stats, "ssaa_masked": 0}
     return (quantize_u8(frame3) if out_u8 else frame3), aux

@@ -15,7 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from rendering_tpu_torch.flagship import build_flagship_scene
+from rendering_tpu_torch.diff.inverse import apply_params, extract_params
+from rendering_tpu_torch.flagship import (
+    build_flagship_scene,
+    build_multimesh_scene,
+)
 from rendering_tpu_torch.ops import cuda_intersect as ci
 from rendering_tpu_torch.render.pipeline import quantize_u8, render_scene
 
@@ -72,3 +76,76 @@ def test_render_on_card_matches_cpu(cuda):
     assert ci.any_hit_kernel.launches == 1
     d = np.abs(cpu_u8.astype(np.int16) - gpu_u8.astype(np.int16))[1:-1, 1:-1]
     assert (d > 1).mean() <= 0.006 and (d > 8).mean() <= 0.005
+
+
+def _multimesh_rays(n, seed):
+    """Rays from near the camera towards the 16-mesh grid, half of them
+    in random directions, with limits and resolved lanes."""
+    rng = np.random.default_rng(seed)
+    ro = rng.normal(0, 0.3, (3, n)).astype(np.float32)
+    aim = np.stack([rng.uniform(-2.5, 2.5, n), rng.uniform(-2.0, 2.0, n),
+                    np.full(n, -3.4)]).astype(np.float32)
+    rd = aim - ro
+    rd[:, n // 2:] = rng.normal(0, 1, (3, n - n // 2))
+    rd /= np.linalg.norm(rd, axis=0, keepdims=True)
+    tl = rng.uniform(0.5, 8.0, n).astype(np.float32)
+    tl[rng.uniform(size=n) < 0.1] = -1.0
+    return [torch.from_numpy(a) for a in (ro, rd, tl)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("anyhit", [False, True])
+@pytest.mark.parametrize("bfc", [True, False])
+def test_fused_kernel_matches_plain(cuda, anyhit, bfc):
+    """K5 against its plain version over the 16-mesh scene's fused
+    tables (pad cull chunks inside the table): mesh and column ids
+    equal, t bit-equal (closest); occlusion and t equal (any)."""
+    scene = build_multimesh_scene(96, 54, n_meshes=16, tris_per_mesh=2000,
+                                  device=cuda)
+    ft = scene.fused_itables
+    ro, rd, tl = (x.to(cuda) for x in _multimesh_rays(8 * 512 + 77, seed=2))
+    prep = ci.prepare(ft.geo, ro, rd, tl)
+    if anyhit:
+        kernel = ci.fused_any_hit_kernel
+        before = kernel.launches
+        out_k = kernel(ft.geo, prep, backface_culling=bfc)
+    else:
+        kernel = ci.fused_closest_hit_kernel
+        before = kernel.launches
+        out_k = kernel(ft.geo, prep, idmap=ft.idmap, backface_culling=bfc)
+    out_p = ci.intersect_fused_plain(ft, prep, anyhit=anyhit,
+                                     backface_culling=bfc)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert int((out_k[1] >= 0).sum()) > 100
+    if not anyhit:
+        assert len(torch.unique(out_k[1][out_k[1] >= 0])) >= 8  # many meshes
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a, b)
+    assert torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_grads_on_card_match_cpu(cuda):
+    """The train step's gradients through the fused path (K5 on the
+    card, the plain version on the CPU) agree: each parameter's to 1e-3
+    of its norm. The kernel and its plain version pick the same
+    triangles, but the card's libm (pow, exp) rounds differently from the
+    CPU's, and a shadow-ray origin an ulp apart can flip one pixel's
+    visibility, so bit equality is not expected."""
+    paths = (("lights", 0, "intensity"), ("obj_color",), ("meshes", 4, "v"),
+             ("meshes", 5, "v"))
+    cpu = build_multimesh_scene(96, 54, n_meshes=16, tris_per_mesh=500,
+                                device="cpu")
+    w = torch.from_numpy(((np.arange(3 * 54 * 96) % 7 + 1) / 7.0)
+                         .astype(np.float32).reshape(3, 54, 96))
+    grads = []
+    for scene in (cpu, cpu.to(cuda)):
+        params = extract_params(scene, paths)
+        frame, _ = render_scene(apply_params(scene, params, paths))
+        (frame * w.to(scene.device)).sum().backward()
+        grads.append({k: v.grad.cpu() for k, v in params.items()})
+    for k, g_cpu in grads[0].items():
+        g_gpu = grads[1][k]
+        assert torch.isfinite(g_gpu).all() and g_cpu.abs().sum() > 0, k
+        assert float((g_gpu - g_cpu).norm()) <= 1e-3 * float(g_cpu.norm()), k

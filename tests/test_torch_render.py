@@ -25,6 +25,7 @@ from rendering_tpu.flagship import procedural_mesh as j_procedural_mesh
 from rendering_tpu.models import parser as j_parser
 from rendering_tpu.models.scene import build_scene as j_build_scene
 from rendering_tpu.models.settings import RenderSettings as JSettings
+from rendering_tpu.render.pipeline import derive_mesh_tables as j_derive
 from rendering_tpu.render.pipeline import quantize_u8 as j_quantize_u8
 from rendering_tpu.render.pipeline import render_scene as j_render_scene
 from rendering_tpu_torch.flagship import build_flagship_scene as t_flagship
@@ -32,7 +33,11 @@ from rendering_tpu_torch.flagship import procedural_mesh as t_procedural_mesh
 from rendering_tpu_torch.models import parser as t_parser
 from rendering_tpu_torch.models.scene import build_scene as t_build_scene
 from rendering_tpu_torch.models.settings import RenderSettings as TSettings
-from rendering_tpu_torch.render.pipeline import render, render_scene
+from rendering_tpu_torch.render.pipeline import (
+    derive_mesh_tables,
+    render,
+    render_scene,
+)
 from torch_port_util import (
     golden_fractions,
     jax_leaves,
@@ -79,10 +84,16 @@ def test_scene_from_numpy_round_trip(with_maps):
               "mat_type"):
         np.testing.assert_array_equal(getattr(cs, k).numpy(), leaves[k])
         assert torch.equal(getattr(cs, k), getattr(ts, k))
-    for k in ("v", "n", "uv", "tangent", "bitangent", "vgeoT"):
+    for k in ("v", "n", "uv", "tangent", "bitangent"):
         np.testing.assert_array_equal(getattr(cs.meshes[0], k).numpy(),
                                       leaves[f"meshes.0.{k}"])
         assert torch.equal(getattr(cs.meshes[0], k), getattr(ts.meshes[0], k))
+    # The gather tables are derived in each render: the derivation
+    # equals the JAX package's build-time copies bit for bit.
+    cd, td = derive_mesh_tables(cs).meshes[0], derive_mesh_tables(ts).meshes[0]
+    assert cs.meshes[0].vgeoT is None and cs.meshes[0].mapsT is None
+    np.testing.assert_array_equal(cd.vgeoT.numpy(), leaves["meshes.0.vgeoT"])
+    assert torch.equal(cd.vgeoT, td.vgeoT)
     for k in ("tri", "cbox", "sbox"):
         assert torch.equal(getattr(cs.meshes[0].itables, k),
                            getattr(ts.meshes[0].itables, k))
@@ -91,7 +102,9 @@ def test_scene_from_numpy_round_trip(with_maps):
             assert torch.equal(getattr(cs.lights[i], k),
                                getattr(ts.lights[i], k))
     if with_maps:
-        assert torch.equal(cs.meshes[0].mapsT, ts.meshes[0].mapsT)
+        np.testing.assert_array_equal(
+            cd.mapsT.numpy(), np.asarray(j_derive(js).meshes[0].mapsT))
+        assert torch.equal(cd.mapsT, td.mapsT)
         assert cs.static.meshes[0].pmap_wh == js.static.meshes[0].pmap_wh
     assert cs.static == ts.static
 
@@ -182,8 +195,9 @@ def test_render_host_wrapper():
 def test_render_is_differentiable():
     """The render stays autograd-clean: gradients of the mean pixel reach
     the distant light's intensity (the point and area falloffs saturate
-    at 1 here), object colors and the mesh's gather table (the fwd+bwd
-    slice holds them against jax.grad)."""
+    at 1 here), object colors and the mesh's vertices through the gather
+    table derived in the render (tests/test_torch_grad.py holds them
+    against jax.grad)."""
     sd, mesh = _hand_built_defs(t_parser, TSettings(width=32, height=16,
                                                     enable_ssaa=False))
     mesh.mesh = t_procedural_mesh(300, pos=(0.8, 0.1, -3),
@@ -191,10 +205,10 @@ def test_render_is_differentiable():
     ts = t_build_scene(sd, device="cpu")
     ts.obj_color.requires_grad_(True)
     ts.lights[1].intensity.requires_grad_(True)
-    vgeoT = ts.meshes[0].vgeoT.requires_grad_(True)
+    v = ts.meshes[0].v.requires_grad_(True)
     frame, _ = render_scene(ts)
     frame.mean().backward()
-    for g in (ts.obj_color.grad, ts.lights[1].intensity.grad, vgeoT.grad):
+    for g in (ts.obj_color.grad, ts.lights[1].intensity.grad, v.grad):
         assert g is not None and torch.isfinite(g).all() and g.abs().sum() > 0
 
 
@@ -222,14 +236,23 @@ def test_unported_features_raise(change):
 
 
 def test_multi_mesh_and_clipped_mesh_raise():
+    """A mesh clipped by its root box needs the root filter (K4), which
+    comes with the scene-file slice: the build raises for it, alone and
+    beside a second mesh. Two unclipped meshes build, through the fused
+    tables (K5)."""
     sd, mesh = _hand_built_defs(t_parser, TSettings(width=8, height=8))
     mesh.mesh = t_procedural_mesh(100, pos=(0.8, 0.1, -3), size=(1, 1, 1))
-    sd.objects.append(mesh)
-    with pytest.raises(NotImplementedError, match="two or more meshes"):
-        t_build_scene(sd, device="cpu")
-    sd.objects.pop()
+    second = dataclasses.replace(mesh, pos=(-0.8, 0.1, -3))
+    second.mesh = t_procedural_mesh(80, pos=(-0.8, 0.1, -3), size=(1, 1, 1),
+                                    seed=3)
+    sd.objects.append(second)
+    two = t_build_scene(sd, device="cpu")
+    assert two.fused_itables.n_meshes == 2
     m = mesh.mesh
     m.root_bounds = m.root_bounds * 0.5  # the mesh now pokes outside
+    with pytest.raises(NotImplementedError, match="root"):
+        t_build_scene(sd, device="cpu")
+    sd.objects.pop()
     with pytest.raises(NotImplementedError, match="root"):
         t_build_scene(sd, device="cpu")
 

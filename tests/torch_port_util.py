@@ -1,13 +1,21 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py):
-carrying a JAX scene across as numpy, and the golden u8 measures."""
+carrying a JAX scene across as numpy, the two-mesh scene of
+tests/test_fused.py for both packages, renders of both packages from
+the same primary rays, the gradient loss weights, and the golden u8
+measures."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
 import numpy as np
+import torch
 
+import rendering_tpu.render.pipeline as j_pipeline
+import rendering_tpu_torch.render.pipeline as t_pipeline
+from rendering_tpu.render.raygen import primary_rays as j_primary_rays
 from rendering_tpu_torch.convert import scene_from_numpy
 
 
@@ -33,8 +41,121 @@ def port_scene(jax_scene, device="cpu"):
                             device=device)
 
 
+def two_mesh_defs(parser, procedural_mesh, settings,
+                  transparent_second=False):
+    """The two-mesh scene of tests/test_fused.py (plane, phong mesh A,
+    diffuse or transparent mesh B, sphere; point and distant lights) as
+    either package's SceneDef, from its own parser module and
+    procedural_mesh."""
+    sd = parser.SceneDef(settings=settings)
+    sd.lights = [
+        parser.LightDef("point", color=(1, 0.9, 0.8), intensity=0.7,
+                        pos=(0, 2, -1)),
+        parser.LightDef("distant", color=(1, 1, 1), intensity=0.3,
+                        dir=(0.2, -1, -0.4)),
+    ]
+    mesh_a = parser.ObjectDef(
+        "mesh", pos=(-0.8, 0.0, -3.0), size=(1.4, 1.4, 1.4),
+        color=(0.9, 0.5, 0.3), material="phong", ambient=0.3, diffuse=0.4,
+        specular=0.3, n_specular=10.0,
+    )
+    mesh_a.mesh = procedural_mesh(150, pos=(-0.8, 0.0, -3.0),
+                                  size=(1.4, 1.4, 1.4), seed=1)
+    mesh_b = parser.ObjectDef(
+        "mesh", pos=(0.9, 0.2, -3.5), size=(1.2, 1.2, 1.2),
+        color=(1, 1, 1) if transparent_second else (0.3, 0.5, 0.9),
+        material="transparent" if transparent_second else "diffuse",
+        ior=1.4,
+    )
+    mesh_b.mesh = procedural_mesh(90, pos=(0.9, 0.2, -3.5),
+                                  size=(1.2, 1.2, 1.2), seed=2)
+    sd.objects = [
+        parser.ObjectDef("plane", pos=(0, -1.5, 0), normal=(0, 1, 0),
+                         color=(0.85, 0.85, 0.85)),
+        mesh_a,
+        mesh_b,
+        parser.ObjectDef("sphere", pos=(0.1, 1.0, -4.5), radius=0.6,
+                         color=(0.9, 0.3, 0.3)),
+    ]
+    return sd
+
+
+def jax_two_mesh_scene(transparent_second=False, height=32):
+    """The JAX package's two-mesh scene, its Pallas kernel in interpret
+    mode, 64 pixels wide and 32 high rather than tests/test_fused.py's
+    64x48: at a height that is not a power of two, XLA on the CPU
+    computes the horizon row's 2 * (y + 1) / h - 1 as -1.4e-8 instead of
+    0 (IEEE, and the port), so its horizon rays hit the floor plane far
+    away where the port's miss it.
+
+    At any even height one pixel row looks exactly along the plane of
+    mesh A's equator ring of vertices, so its rays hit shared triangle
+    edges, where the Pallas kernel (t rounded by XLA) and the port (t in
+    exact f32 order) may pick either neighbour. The frame does not see
+    which (smooth normals); vertex gradients do. Gradient tests therefore
+    take an odd height, which has no such row."""
+    from rendering_tpu.flagship import procedural_mesh
+    from rendering_tpu.models import parser
+    from rendering_tpu.models.scene import build_scene
+    from rendering_tpu.models.settings import RenderSettings
+
+    st = RenderSettings(
+        width=64, height=height, enable_ssaa=False, enable_output=False,
+        output_progress=False, background_color=(0.2, 0.2, 0.25),
+        max_ray_depth=3, pallas_interpret=True,
+    )
+    return build_scene(two_mesh_defs(parser, procedural_mesh, st,
+                                     transparent_second))
+
+
+def loss_weights(shape):
+    """The weights of tests/test_fused.py's gradient loss sum(frame * w):
+    w = (flat index % 7 + 1) / 7, as one f32 numpy array that both
+    packages multiply by."""
+    n = int(np.prod(shape))
+    return ((np.arange(n) % 7 + 1) / 7.0).astype(np.float32).reshape(shape)
+
+
 def golden_fractions(a_u8, b_u8):
     """(frac of interior u8 values differing by > 1, by > 8) — the first
     two measures of tests/test_golden.py, 1-pixel border excluded."""
     d = np.abs(a_u8.astype(np.int16) - b_u8.astype(np.int16))[1:-1, 1:-1]
     return float((d > 1).mean()), float((d > 8).mean())
+
+
+@contextlib.contextmanager
+def shared_primary_rays(jax_scene):
+    """Within the block, both packages' render pipelines take the same
+    primary rays: the JAX package's, computed once outside any jit. XLA
+    rounds the ray normalization differently inside and outside a jit
+    (1 ulp on ~1% of the rays at 64x32), and an ulp can move a ray
+    across a silhouette or a triangle edge, which changes that pixel's
+    colour and which vertices its gradient reaches. Render the JAX side
+    with `j_render_fresh` below, which traces anew, so no trace made
+    before the block is reused."""
+    ro, rd, pix = (np.array(x) for x in j_primary_rays(jax_scene,
+                                                         offset=1.0))
+
+    def j_rays(scene, offset=1.0):
+        assert offset == 1.0
+        return jax.numpy.asarray(ro), jax.numpy.asarray(rd), \
+            jax.numpy.asarray(pix)
+
+    def t_rays(scene, offset=1.0):
+        assert offset == 1.0
+        return tuple(torch.from_numpy(x).to(scene.device)
+                     for x in (ro, rd, pix))
+
+    saved = j_pipeline.primary_rays, t_pipeline.primary_rays
+    j_pipeline.primary_rays, t_pipeline.primary_rays = j_rays, t_rays
+    try:
+        yield
+    finally:
+        j_pipeline.primary_rays, t_pipeline.primary_rays = saved
+
+
+def j_render_fresh(scene):
+    """The JAX package's render_scene frame, traced anew on every call
+    (a fresh jit of its Python function), so that it reads the primary
+    rays in effect now."""
+    return jax.jit(lambda s: j_pipeline.render_scene.__wrapped__(s))(scene)[0]
