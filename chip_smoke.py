@@ -41,16 +41,43 @@ any hit over all meshes):
    meshes 4 and 5: launches per step, finite nonzero gradients, two
    steps from the same state bit-equal, step time and peak memory.
 
-Prints the card, a JSON line of per-kernel numbers, a JSON line of the
-path numbers, and as its last line {"ok": true, "device": {...}}. Any
-failed check raises, so the script exits non-zero; without a CUDA device
-it exits 1 and prints no result.
+The scene-file entry point, `python -m rendering_tpu_torch scene.scene`
+(`cli.main`), on t10_shotgun.scene's workload at 3840x1080: the 250k
+procedural mesh written as an OBJ, rotated, so clipped by its root box,
+with SSAA on (kernels K4, the root filter, and K3, the test counters, as
+variants of K1/K2/K5):
+
+10. renders the scene file through the CLI: the BMP decodes to
+    3840x1080, the root-filter variants of K1 and K2 launch once per ray
+    block of the primary and the SSAA pass and the unfiltered ones never;
+    prints the OBJ load, BVH, build and render times, the SSAA mask and
+    capacity and the hit fraction; keeps the middle block's queries;
+11. holds the root-filter kernels against their plain versions on 64
+    sampled tiles and on the whole queries, times them and computes
+    their bound;
+12. renders the scene with collectStatistics=1 through the CLI (the
+    statistics block printed), holds the counting kernels against their
+    plain versions (counters exactly equal), and times the counting frame
+    against the plain frame;
+13. whole-render u8 parity at 384x216, kernels vs plain versions, with
+    equal counters, on that scene file and on a two-OBJ scene file (one
+    mesh clipped, one not: K5 with the root filter and the counters),
+    whose own CLI runs at 1920x1080, without and with the counters, give
+    the fused variants' launches and numbers.
+
+Prints the card, a JSON line of the path numbers, a JSON line of
+per-kernel numbers, and as its last line {"ok": true, "device": {...}}.
+Any failed check raises, so the script exits non-zero; without a CUDA
+device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -84,9 +111,70 @@ F32_OPS_RATE = 67e12 / 2
 # MUFU.RCP plus 3 refinement instructions. Shared-memory loads, branches
 # and predicate logic are left out, so the bound stays a lower bound.
 OPS_PER_PAIR = 18 + 5 + 3 + 18 + 1 + 7 + 1 + 4
+# The root filter's literal slab, per pair Moller-Trumbore accepted below
+# the running t (csrc/mesh_intersect.cu reach_hit): per axis 1 compare,
+# 2 selects, 2 sub and 2 mul; then 4 compares and 2 compare-selects.
+SLAB_OPS = 3 * 7 + 4 + 2 * 2
 SOURCE = "rendering_tpu_torch/csrc/mesh_intersect.cu"
 TPU_KERNEL = "rendering_tpu/ops/pallas_intersect.py:135"
 TPU_FUSED = "rendering_tpu/ops/pallas_intersect.py:1154"
+TPU_ROOT_FILTER = "rendering_tpu/ops/pallas_intersect.py:328"
+TPU_STATS = "rendering_tpu/ops/pallas_intersect.py:177"
+# The scene-file path: t10_shotgun.scene's options, lights and object with
+# the 250k procedural mesh as its OBJ (tests/scenes/t10_shotgun.scene).
+SCENE_W, SCENE_H = 3840, 1080
+TWO_OBJ_WH = (1920, 1080)
+TWO_OBJ_TRIS = (50_000, 20_000)   # the clipped mesh, the unclipped one
+MAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                    "tests", "assets", "maps")
+WORKSPACE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke")
+SCENE_FILE = """[options]
+width={w}
+height={h}
+ac_penalty=3
+background_color=0.52,0.8,0.92
+image_name={name}
+enableOutput=1
+outputProgress=0
+collectStatistics={stats}
+
+[light]
+type=point
+position=0,0,0
+color=1,1,1
+intensity=1.0
+
+[light]
+type=distant
+direction=0.3,0,-1
+color=1,1,1
+intensity=0.2
+
+[object]
+type=mesh
+pos=-0.1,0,-0.6
+size=2,2,2
+color=1,1,1
+rot=0,100,0
+material=phong,0.4,0.1,0.7,10.0
+name={obj}
+diffuse_map={maps}/shotgun_diffuse.bmp
+normal_map={maps}/shotgun_normal.bmp
+specular_map={maps}/shotgun_specular.bmp
+{extra}
+[end]
+"""
+# The two-OBJ scene's second mesh: unrotated, inside its root box.
+SECOND_OBJECT = """
+[object]
+type=mesh
+pos=0.9,0.3,-2.2
+size=0.8,0.8,0.8
+color=0.3,0.5,0.9
+material=diffuse
+name={obj}
+"""
 
 
 def card() -> str:
@@ -113,37 +201,34 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# Each kernel's name in the report, the launcher in ops/cuda_intersect.py
-# that counts its launches, and whether it answers any-hit queries.
-KERNELS = {
-    "closest_hit": ("closest_hit_kernel", False),
-    "any_hit": ("any_hit_kernel", True),
-    "fused_closest_hit": ("fused_closest_hit_kernel", False),
-    "fused_any_hit": ("fused_any_hit_kernel", True),
-}
+def flags(ci, name) -> dict:
+    """The query flags of kernel variant `name` (ops/cuda_intersect.py
+    KERNELS): anyhit, root_filter, collect_stats."""
+    k = ci.KERNELS[name]
+    return dict(anyhit=k.anyhit, root_filter=k.root_filter,
+                collect_stats=k.collect_stats)
 
 
-def launch(ci, tables, prep, anyhit, bfc):
+def launch(ci, tables, prep, bfc, **kw):
     """The port's query on card tensors, which launches its kernel:
     `run_fused_query` for fused tables, else `run_query`."""
     run = (ci.run_fused_query if isinstance(tables, ci.FusedTables)
            else ci.run_query)
-    return run(tables, prep, anyhit=anyhit, backface_culling=bfc)
+    return run(tables, prep, backface_culling=bfc, **kw)
 
 
-def plain(ci, tables, prep, anyhit, bfc, stats=None):
+def plain(ci, tables, prep, bfc, stats=None, **kw):
     """The same query through the kernel's plain PyTorch version."""
     fn = (ci.intersect_fused_plain if isinstance(tables, ci.FusedTables)
           else ci.intersect_plain)
-    return fn(tables, prep, anyhit=anyhit, backface_culling=bfc, stats=stats)
+    return fn(tables, prep, backface_culling=bfc, stats=stats, **kw)
 
 
 @contextlib.contextmanager
 def counted(ci, out: dict):
     """Set every kernel's launch count to 0, run the block, and store the
     counts just after it (synchronized) in `out`."""
-    launchers = {name: getattr(ci, attr)
-                 for name, (attr, _) in KERNELS.items()}
+    launchers = ci.KERNELS
     for k in launchers.values():
         k.launches = 0
     yield
@@ -172,20 +257,23 @@ def sample_tiles(ci, prep, n_tiles: int):
 
 def check_parity(ci, name, tables, prep, bfc) -> float:
     """Kernel vs plain version on 64 sampled tiles of a prepared query:
-    every integer output equal, t bit-equal. Returns the max |t|
-    difference (0 when bit-equal); raises on any mismatch."""
-    anyhit = KERNELS[name][1]
+    every integer output (the counters too) equal, t bit-equal. Returns
+    the max |t| difference (0 when bit-equal); raises on any mismatch."""
+    kw = flags(ci, name)
     prep = sample_tiles(ci, prep, SAMPLED_TILES)
-    out_k = launch(ci, tables, prep, anyhit, bfc)
-    out_p = plain(ci, tables, prep, anyhit, bfc)
+    out_k = launch(ci, tables, prep, bfc, **kw)
+    out_p = plain(ci, tables, prep, bfc, **kw)
     torch.cuda.synchronize()
     ids_mis = sum(int((a != b).sum()) for a, b in zip(out_k[1:], out_p[1:]))
     bits_mis = int((out_k[0].view(torch.int32)
                     != out_p[0].view(torch.int32)).sum())
     hit = out_k[1] >= 0
+    counters = (f"; counters kernel {[int(x) for x in out_k[-2:]]} plain "
+                f"{[int(x) for x in out_p[-2:]]}" if kw["collect_stats"]
+                else "")
     print(f"parity {name}: {prep.n_rays} rays in {SAMPLED_TILES} "
           f"tiles, {int(hit.sum())} hit/occluded; mismatches: ids "
-          f"{ids_mis}, t bits {bits_mis}")
+          f"{ids_mis}, t bits {bits_mis}{counters}")
     if ids_mis or bits_mis or not bool(hit.any()):
         raise AssertionError(f"{name} kernel disagrees with its plain "
                              f"version (or found nothing)")
@@ -197,12 +285,12 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
     prepared query of the main path, and the kernel's bound from this
     query's work. Also checks the kernel against its plain version on the
     whole query."""
-    anyhit = KERNELS[name][1]
-    ms = cuda_ms(lambda: launch(ci, tables, prep, anyhit, bfc), reps=20)
-    plain_ms = cuda_ms(lambda: plain(ci, tables, prep, anyhit, bfc), reps=1)
+    kw = flags(ci, name)
+    ms = cuda_ms(lambda: launch(ci, tables, prep, bfc, **kw), reps=20)
+    plain_ms = cuda_ms(lambda: plain(ci, tables, prep, bfc, **kw), reps=1)
     stats: dict = {}
-    out_p = plain(ci, tables, prep, anyhit, bfc, stats)
-    out_k = launch(ci, tables, prep, anyhit, bfc)
+    out_p = plain(ci, tables, prep, bfc, stats, **kw)
+    out_k = launch(ci, tables, prep, bfc, **kw)
     if not same(out_k, out_p):
         raise AssertionError(f"{name} disagrees with its plain "
                              f"version at the main path's shape")
@@ -218,9 +306,13 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
                          prep.counts))
     n_out = sum(x.numel() * x.element_size() for x in out_k)
     bytes_ms = (n_in + n_out) / HBM_RATE * 1e3
-    ops_ms = stats["pairs"] * OPS_PER_PAIR / F32_OPS_RATE * 1e3
+    ops = stats["pairs"] * OPS_PER_PAIR
+    if kw["root_filter"]:
+        ops += stats["accepts"] * SLAB_OPS
+    ops_ms = ops / F32_OPS_RATE * 1e3
     return {
-        "rays": prep.n_rays, "pairs": stats["pairs"], "ms": ms,
+        "rays": prep.n_rays, "pairs": stats["pairs"],
+        "accepts": stats["accepts"], "ms": ms,
         "plain_ms": plain_ms, "prepass_ms": prepass_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
@@ -230,13 +322,13 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
 @contextlib.contextmanager
 def routed_queries(ci, route):
     """Send the port's intersection queries (single-mesh and fused)
-    through route(real, tables, prep, anyhit, backface_culling) instead
+    through route(real, tables, prep, backface_culling, **flags) instead
     of `ci.run_query` / `ci.run_fused_query`."""
     saved = ci.run_query, ci.run_fused_query
 
     def wrap(real):
-        def query(tables, prep, *, anyhit, backface_culling):
-            return route(real, tables, prep, anyhit, backface_culling)
+        def query(tables, prep, *, backface_culling, **kw):
+            return route(real, tables, prep, backface_culling, **kw)
         return query
 
     ci.run_query, ci.run_fused_query = map(wrap, saved)
@@ -251,19 +343,19 @@ def keep_block(ci, block: int, kept: dict):
     `block` under kept[anyhit] and runs the real query."""
     seen = {False: 0, True: 0}
 
-    def route(real, tables, prep, anyhit, backface_culling):
+    def route(real, tables, prep, backface_culling, **kw):
+        anyhit = kw["anyhit"]
         if seen[anyhit] == block:
             kept[anyhit] = (tables, prep)
         seen[anyhit] += 1
-        return real(tables, prep, anyhit=anyhit,
-                    backface_culling=backface_culling)
+        return real(tables, prep, backface_culling=backface_culling, **kw)
     return routed_queries(ci, route)
 
 
 def plain_queries(ci):
     """Every query through its plain PyTorch version, on the card."""
-    def route(real, tables, prep, anyhit, backface_culling):
-        return plain(ci, tables, prep, anyhit, backface_culling)
+    def route(real, tables, prep, backface_culling, **kw):
+        return plain(ci, tables, prep, backface_culling, **kw)
     return routed_queries(ci, route)
 
 
@@ -284,7 +376,7 @@ def check_frame(scene, frame3, w, h, what):
 def check_launches(counts, expect: dict, what):
     """counts of the path's run: each kernel in `expect` launched that
     many times (> 0), every other kernel not at all."""
-    print(f"{what} launches: {counts}")
+    print(f"{what} launches: {({k: n for k, n in counts.items() if n})}")
     for name, n in counts.items():
         want = expect.get(name, 0)
         if n != want:
@@ -295,17 +387,22 @@ def check_launches(counts, expect: dict, what):
 
 
 def whole_render_parity(ci, build, what):
+    """render_scene at PARITY_WH with the kernels and with their plain
+    versions on the card: u8 frames and the stats counters equal."""
     from rendering_tpu_torch.render.pipeline import render_scene
 
     small = build(*PARITY_WH)
     with torch.no_grad():
-        u8_k, _ = render_scene(small, out_u8=True)
+        u8_k, aux_k = render_scene(small, out_u8=True)
         with plain_queries(ci):
-            u8_p, _ = render_scene(small, out_u8=True)
+            u8_p, aux_p = render_scene(small, out_u8=True)
     n_diff = int((u8_k != u8_p).sum())
+    counts_k = {k: int(v) for k, v in aux_k["stats"].items()}
+    counts_p = {k: int(v) for k, v in aux_p["stats"].items()}
     print(f"whole-render parity {what} {PARITY_WH[0]}x{PARITY_WH[1]}: "
-          f"{n_diff} differing u8 values")
-    if n_diff:
+          f"{n_diff} differing u8 values; stats kernels {counts_k}, plain "
+          f"{counts_p}")
+    if n_diff or counts_k != counts_p:
         raise AssertionError(f"{what}: kernel and plain renders disagree")
 
 
@@ -373,6 +470,137 @@ def train(ci, scene, paths, *, reps: int, zero_ok=()):
     return result
 
 
+@contextlib.contextmanager
+def recorded(module, attr: str, calls: list):
+    """Wrap module.attr so that every call appends {"args", "kwargs",
+    "result", "s"} (host seconds, synchronized) to calls."""
+    real = getattr(module, attr)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append({"args": args, "kwargs": kwargs, "result": out,
+                      "s": time.perf_counter() - t0})
+        return out
+
+    setattr(module, attr, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+def write_scene(path, obj, *, w, h, stats, name, second_obj=None):
+    with open(path, "w") as fh:
+        fh.write(SCENE_FILE.format(
+            w=w, h=h, stats=int(stats), name=name, obj=obj, maps=MAPS,
+            extra=SECOND_OBJECT.format(obj=second_obj) if second_obj else ""))
+
+
+def cli_path(ci, scene_path, what, kept: dict, block: int) -> dict:
+    """`python -m rendering_tpu_torch scene_path --output <bmp>` as
+    `cli.main`, with every kernel's launch count set to 0 just before it
+    and read just after. Records the OBJ load, BVH, scene build and render
+    times, the SSAA mask size and capacity of each render attempt, and
+    the frame's hit fraction from the BMP; requires each ray block of the
+    primary and SSAA passes to launch the path's closest- and any-hit
+    kernels once. Keeps the queries of ray block `block` in `kept`
+    (keep_block)."""
+    import numpy as np
+
+    from rendering_tpu_torch import cli
+    from rendering_tpu_torch.models import parser
+    from rendering_tpu_torch.models import scene as scene_mod
+    from rendering_tpu_torch.render import pipeline
+    from rendering_tpu_torch.utils.bmp import (
+        bmp_to_image,
+        load_bmp,
+        quantize_reference,
+    )
+
+    bmp = scene_path[:-len(".scene")] + ".bmp"
+    rec = {k: [] for k in ("obj", "bvh", "build", "render", "primary",
+                           "ssaa")}
+    counts: dict = {}
+    with contextlib.ExitStack() as stack:
+        for key, module, attr in (("obj", parser, "load_obj"),
+                                  ("bvh", scene_mod, "build_bvh"),
+                                  ("build", scene_mod, "build_scene"),
+                                  ("render", pipeline, "render_scene"),
+                                  ("primary", pipeline, "_primary_pass"),
+                                  ("ssaa", pipeline, "_ssaa_pass")):
+            stack.enter_context(recorded(module, attr, rec[key]))
+        stack.enter_context(keep_block(ci, block, kept))
+        stack.enter_context(counted(ci, counts))
+        t0 = time.perf_counter()
+        cli.main([scene_path, "--output", bmp])
+        total_s = time.perf_counter() - t0
+    scene = rec["build"][0]["result"]
+    st = scene.static.settings
+    w, h = st.width, st.height
+    attempts = []
+    blocks = 0
+    for k, call in enumerate(rec["render"]):
+        cap = (call["kwargs"].get("ssaa_capacity")
+               or pipeline.default_ssaa_capacity(st))
+        masked = int(call["result"][1]["ssaa_masked"])
+        attempts.append({"capacity": cap, "masked": masked,
+                         "s": call["s"], "primary_s": rec["primary"][k]["s"],
+                         "ssaa_s": rec["ssaa"][k]["s"]})
+        blocks += math.ceil(w * h / RAY_BLOCK) + math.ceil(4 * cap / RAY_BLOCK)
+    image = bmp_to_image(load_bmp(bmp))
+    if image.shape != (h, w, 3):
+        raise AssertionError(f"{what}: BMP decodes to {image.shape}")
+    bg = quantize_reference(np.asarray(st.background_color, np.float32))
+    hit_frac = float((image[1:-1, 1:-1] != bg).any(axis=2).mean())
+    clipped = [m.clipped_by_root for m in scene.static.meshes]
+    fused = scene.fused_itables is not None
+    prefix = "fused_" if fused else ""
+    suffix = "_rootfilter" + ("_stats" if st.collect_statistics else "")
+    check_launches(counts, {f"{prefix}closest_hit{suffix}": blocks,
+                            f"{prefix}any_hit{suffix}": blocks},
+                   f"{what} cli.main ({blocks} ray blocks)")
+    out = {
+        "width": w, "height": h,
+        "triangles": [m.n_tris for m in scene.static.meshes],
+        "clipped": clipped, "total_s": total_s,
+        "obj_load_s": [c["s"] for c in rec["obj"]],
+        "bvh_s": [c["s"] for c in rec["bvh"]],
+        "build_s": rec["build"][0]["s"],
+        "renders": attempts, "hit_fraction": hit_frac,
+        "launches": {k: n for k, n in counts.items() if n},
+        "scene": scene, "scene_def": rec["build"][0]["args"][0],
+    }
+    print(f"{what}: {w}x{h}, {out['triangles']} triangles (clipped "
+          f"{clipped}); OBJ load {out['obj_load_s']} s, BVH {out['bvh_s']} s, "
+          f"scene build {out['build_s']:.3f} s, renders {attempts}; "
+          f"hit fraction {hit_frac:.4f}; cli.main {total_s:.3f} s")
+    if hit_frac < 0.05:
+        raise AssertionError(f"{what}: the geometry is not hit")
+    return out
+
+
+def scene_at(scene_def, w, h):
+    """The scene of a recorded SceneDef, rebuilt at w x h on the card."""
+    from rendering_tpu_torch.models.scene import build_scene
+
+    sd = dataclasses.replace(scene_def,
+                             settings=scene_def.settings.replace(width=w,
+                                                                 height=h))
+    return build_scene(sd, device="cuda")
+
+
+def replaces(name: str) -> str:
+    """The TPU kernel (file:line) that variant `name` replaces: the
+    counters (K3), the root filter (K4), K5 or K1/K2."""
+    if "stats" in name:
+        return TPU_STATS
+    if "rootfilter" in name:
+        return TPU_ROOT_FILTER
+    return TPU_FUSED if name.startswith("fused") else TPU_KERNEL
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -431,9 +659,9 @@ def main() -> int:
     # ---- 2-3. K1, K2 vs plain, and their numbers, on the kept queries ------
     err, nums = {}, {}
     for name in ("closest_hit", "any_hit"):
-        err[name] = check_parity(ci, name, *kept[KERNELS[name][1]], bfc)
+        err[name] = check_parity(ci, name, *kept[ci.KERNELS[name].anyhit], bfc)
     for name in ("closest_hit", "any_hit"):
-        nums[name] = kernel_numbers(ci, name, *kept[KERNELS[name][1]], bfc)
+        nums[name] = kernel_numbers(ci, name, *kept[ci.KERNELS[name].anyhit], bfc)
         print(f"{name}: {json.dumps(nums[name])}")
     kept.clear()
 
@@ -482,9 +710,9 @@ def main() -> int:
 
     # ---- 7. K5 vs plain, and its numbers, on the kept queries -----------------
     for name in ("fused_closest_hit", "fused_any_hit"):
-        err[name] = check_parity(ci, name, *kept[KERNELS[name][1]], bfc)
+        err[name] = check_parity(ci, name, *kept[ci.KERNELS[name].anyhit], bfc)
     for name in ("fused_closest_hit", "fused_any_hit"):
-        nums[name] = kernel_numbers(ci, name, *kept[KERNELS[name][1]], bfc)
+        nums[name] = kernel_numbers(ci, name, *kept[ci.KERNELS[name].anyhit], bfc)
         print(f"{name}: {json.dumps(nums[name])}")
     kept.clear()
 
@@ -503,26 +731,125 @@ def main() -> int:
           f"{mmt['step_ms']:.3f} ms, {mmt['rays_per_s']:.4e} rays/s; peak "
           f"{mmt['peak_bytes'] / 2**30:.3f} GiB on {card_line}")
 
+    del mm, mm_frame
+    torch.cuda.empty_cache()
+
+    # ---- 10. the scene file through the CLI (K4) -----------------------------
+    from rendering_tpu_torch.flagship import procedural_mesh
+    from rendering_tpu_torch.models.objloader import write_obj
+
+    os.makedirs(WORKSPACE, exist_ok=True)
+    t0 = time.perf_counter()
+    objs = {}
+    for key, n, seed in (("shotgun", N_TRIS, 0), ("two_a", TWO_OBJ_TRIS[0], 1),
+                         ("two_b", TWO_OBJ_TRIS[1], 2)):
+        m = procedural_mesh(n, pos=(0, 0, 0), size=(2, 2, 2), seed=seed)
+        objs[key] = os.path.join(WORKSPACE, f"{key}.obj")
+        write_obj(objs[key], m.v, m.uv, m.n)
+    write_s = time.perf_counter() - t0
+    print(f"wrote the OBJ files {[os.path.getsize(p) for p in objs.values()]} "
+          f"bytes in {write_s:.3f} s")
+    scene_paths = {}
+    for stats in (False, True):
+        scene_paths[stats] = os.path.join(WORKSPACE, f"shotgun{int(stats)}.scene")
+        write_scene(scene_paths[stats], objs["shotgun"], w=SCENE_W, h=SCENE_H,
+                    stats=stats, name=f"shotgun{int(stats)}")
+        scene_paths["two", stats] = os.path.join(WORKSPACE,
+                                                 f"two{int(stats)}.scene")
+        write_scene(scene_paths["two", stats], objs["two_a"], w=TWO_OBJ_WH[0],
+                    h=TWO_OBJ_WH[1], stats=stats, name=f"two{int(stats)}",
+                    second_obj=objs["two_b"])
+
+    sf_block = math.ceil(SCENE_W * SCENE_H / RAY_BLOCK) // 2
+    two_block = math.ceil(TWO_OBJ_WH[0] * TWO_OBJ_WH[1] / RAY_BLOCK) // 2
+    sf = cli_path(ci, scene_paths[False], "scene file", kept, sf_block)
+    scene = sf["scene"]
+    bfc = scene.static.settings.use_backface_culling
+    if not sf["clipped"][0]:
+        raise AssertionError("the scene file's mesh is not clipped")
+
+    def sf_forward(sc):
+        with torch.no_grad():
+            render_scene(sc)
+
+    sf_frame_ms = cuda_ms(lambda: sf_forward(scene), reps=2)
+    print(f"scene-file frame {SCENE_W}x{SCENE_H} (primary + SSAA): "
+          f"{sf_frame_ms:.3f} ms on {card_line}")
+
+    # ---- 11. K4 vs plain, and its numbers, on the kept queries ---------------
+    for name in ("closest_hit_rootfilter", "any_hit_rootfilter"):
+        err[name] = check_parity(ci, name, *kept[ci.KERNELS[name].anyhit], bfc)
+        nums[name] = kernel_numbers(ci, name, *kept[ci.KERNELS[name].anyhit],
+                                    bfc)
+        print(f"{name}: {json.dumps(nums[name])}")
+    kept.clear()
+
+    # ---- 12. collectStatistics=1 through the CLI (K3 with K4) ----------------
+    sfs = cli_path(ci, scene_paths[True], "scene file, collectStatistics=1",
+                   kept, sf_block)
+    for name in ("closest_hit_rootfilter_stats", "any_hit_rootfilter_stats"):
+        err[name] = check_parity(ci, name, *kept[ci.KERNELS[name].anyhit], bfc)
+        nums[name] = kernel_numbers(ci, name, *kept[ci.KERNELS[name].anyhit],
+                                    bfc)
+        print(f"{name}: {json.dumps(nums[name])}")
+    kept.clear()
+    sfs_frame_ms = cuda_ms(lambda: sf_forward(sfs["scene"]), reps=2)
+    print(f"counting frame {SCENE_W}x{SCENE_H}: {sfs_frame_ms:.3f} ms vs "
+          f"{sf_frame_ms:.3f} ms without the counters on {card_line}")
+
+    # ---- 13. whole-render parity; the two-OBJ scene file (K5 + K4 + K3) -------
+    whole_render_parity(ci, lambda w, h: scene_at(sfs["scene_def"], w, h),
+                        "scene file, SSAA, collectStatistics=1")
+    del scene, sf["scene"], sfs["scene"]
+    torch.cuda.empty_cache()
+    two = {}
+    for stats in (False, True):
+        two[stats] = cli_path(ci, scene_paths["two", stats],
+                              f"two-OBJ scene file (stats {int(stats)})",
+                              kept, two_block)
+        if two[stats]["clipped"] != [True, False]:
+            raise AssertionError("the two-OBJ scene: expected one clipped mesh")
+        sfx = "_rootfilter" + ("_stats" if stats else "")
+        for name in (f"fused_closest_hit{sfx}", f"fused_any_hit{sfx}"):
+            err[name] = check_parity(ci, name,
+                                     *kept[ci.KERNELS[name].anyhit], bfc)
+            nums[name] = kernel_numbers(ci, name,
+                                        *kept[ci.KERNELS[name].anyhit], bfc)
+            print(f"{name}: {json.dumps(nums[name])}")
+        kept.clear()
+    whole_render_parity(ci, lambda w, h: scene_at(two[True]["scene_def"], w, h),
+                        "two-OBJ scene file, SSAA, collectStatistics=1")
+
     # ---- report ----------------------------------------------------------------
-    step_launches = {**flag["launches"], **{
+    launches = {**flag["launches"], **{
         k: mmt["launches"][k] for k in ("fused_closest_hit", "fused_any_hit")}}
+    for run in (sf, sfs, two[False], two[True]):
+        launches.update(run["launches"])
     rows = []
-    for name in KERNELS:
-        n = nums[name]
+    for name, n in nums.items():
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": TPU_FUSED if name.startswith("fused") else TPU_KERNEL,
-            "launches": step_launches[name], "max_abs_err": err[name],
+            "replaces": replaces(name),
+            "launches": launches[name], "max_abs_err": err[name],
             "ms": n["ms"], "plain_ms": n["plain_ms"],
             "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
             "library_ms": None,
         })
+
+    def path_numbers(run):
+        return {k: v for k, v in run.items() if k not in ("scene", "scene_def")}
+
     print(json.dumps({
         "card": card_line,
         "flagship": {"frame_ms": frame_ms,
                      "rays_per_s": rays / frame_ms * 1e3,
                      "fwd_bwd": flag},
         "multimesh": {"frame_ms": mm_frame_ms, "fwd_bwd": mmt},
+        "scene_file": {"obj_write_s": write_s, "frame_ms": sf_frame_ms,
+                       "stats_frame_ms": sfs_frame_ms,
+                       "cli": path_numbers(sf), "cli_stats": path_numbers(sfs),
+                       "two_obj": path_numbers(two[False]),
+                       "two_obj_stats": path_numbers(two[True])},
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,91 @@
+"""Command-line entry — `python -m rendering_tpu_torch [scene.scene]`, the
+port of `rendering_tpu.cli`.
+
+Mirrors the reference's `main` (src/main.cpp:5-16): the default scene is
+`input/simple_shapes.scene` and the output `<image_name>.bmp`, unless
+`--output` names another. The phase timers carry the reference's Timer
+names: Total time, Scene loading, Render scene, and OBJ loading per mesh
+(models/parser.py). With collectStatistics the intersection kernels'
+test counters, the BVH counts and the rays cast are printed as the
+reference's stats::printStats does.
+
+The render runs on the CUDA device; `main(argv, device="cpu")` runs the
+plain PyTorch versions of the kernels on the CPU instead. Scene files
+default to outputProgress=1, whose strip renderer is not ported yet: such
+a file raises NotImplementedError (set outputProgress=0), as do
+--geo-shard and --trace-dir. --no-shard is accepted and changes nothing
+on one device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from rendering_tpu_torch.device import resolve_device
+from rendering_tpu_torch.models.scene import load_scene
+from rendering_tpu_torch.render.pipeline import render
+from rendering_tpu_torch.utils.bmp import save_bmp
+from rendering_tpu_torch.utils.stats import RenderStats
+from rendering_tpu_torch.utils.timer import Timer
+
+
+def main(argv=None, *, device=None) -> int:
+    p = argparse.ArgumentParser(description="PyTorch + CUDA raytracer")
+    p.add_argument("scene", nargs="?", default="input/simple_shapes.scene")
+    p.add_argument("--output", default=None, help="override output path")
+    p.add_argument("--trace-dir", default=None,
+                   help="capture a profiler trace of the render phase "
+                        "(not ported yet)")
+    p.add_argument("--no-shard", action="store_true",
+                   help="render on one device (the only mode of the port)")
+    p.add_argument("--geo-shard", type=int, default=0, metavar="G",
+                   help="shard the geometry over G devices (not ported yet)")
+    args = p.parse_args(argv)
+    for flag, what, slice_ in (
+        (args.geo_shard, "--geo-shard", "multi-device"),
+        (args.trace_dir, "--trace-dir", "profiling"),
+    ):
+        if flag:
+            raise NotImplementedError(
+                f"{what} is not ported yet; it comes with the {slice_} "
+                f"slice of the port")
+    device = resolve_device(device)
+
+    total = Timer("Total time", device=device)
+    t_load = Timer("Scene loading", device=device)
+    scene = load_scene(args.scene, device=device)
+    settings = scene.static.settings
+    t_load.enable_output = settings.enable_output
+    total.enable_output = settings.enable_output
+    t_load.stop()
+    if settings.output_progress and not settings.show_ac:
+        raise NotImplementedError(
+            "outputProgress=1 (the strip renderer with progress prints) is "
+            "not ported yet; it comes with the progress slice of the port. "
+            "Set outputProgress=0 in the scene's [options].")
+
+    t_render = Timer("Render scene", settings.enable_output, device=device)
+    frame, aux = render(scene, out_u8=True)
+    t_render.stop()
+
+    if settings.collect_statistics:
+        rs = RenderStats()
+        rs.add_device_counts({k: int(v) for k, v in aux["stats"].items()})
+        rs.mesh_count = sum(m.n_tris for m in scene.static.meshes)
+        rs.tri_copies_count = sum(m.tri_copies for m in scene.static.meshes)
+        rs.ac_count = sum(m.n_real_nodes for m in scene.static.meshes)
+        rs.print_stats()
+
+    if settings.image_output:
+        out = args.output or (settings.image_name + ".bmp")
+        save_bmp(out, frame)
+        if settings.enable_output:
+            print(f"Successfully wrote to output file {out}")
+
+    total.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

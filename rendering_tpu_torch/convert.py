@@ -11,10 +11,12 @@ flattens the JAX scene, e.g.
     static = dataclasses.asdict(scene.static)
 
 Keys are dotted paths ("cam_pos", "meshes.0.v", "lights.1.color").
-Only the canonical arrays are read; the kernel chunk tables (per mesh,
-or fused for two or more meshes) are rebuilt from them exactly as
-`models.scene.build_scene` builds them, and the gather tables are
-derived in each render.
+Only the canonical arrays and each mesh's BVH reach boxes
+("meshes.0.reach_lo", "meshes.0.reach_hi") are read; the kernel chunk
+tables (per mesh, or fused for two or more meshes) are rebuilt from
+them exactly as `models.scene.build_scene` builds them, and the gather
+tables are derived in each render. The BVH counts (n_real_nodes,
+tri_copies) come with the static.
 
 `params_from_numpy` carries a JAX parameter dict (`diff.inverse`
 extract_params, as numpy) across in the same way.
@@ -31,7 +33,6 @@ from rendering_tpu_torch.models.scene import (
     MeshStatic,
     SceneData,
     SceneStatic,
-    check_supported,
     fused_tables,
     mesh_data,
 )
@@ -74,25 +75,25 @@ def scene_from_numpy(leaves: dict[str, np.ndarray], static: dict,
     unless `device` says otherwise."""
     device = resolve_device(device)
     st = _static_from_dict(static)
-    check_supported(st)
 
     def t(key):
         a = np.asarray(leaves[key])
         dtype = torch.int32 if a.dtype.kind in "iu" else torch.float32
         return torch.tensor(a, dtype=dtype)
 
-    meshes = []
+    meshes, reach = [], []
     for i, ms in enumerate(st.meshes):
         def arr(name, i=i):
             return leaves.get(f"meshes.{i}.{name}")
 
+        reach.append((arr("reach_lo"), arr("reach_hi")))
         meshes.append(mesh_data(
             ms, arr("v"), arr("n"), arr("uv"), arr("tangent"),
             arr("bitangent"), arr("diffuse_map"), arr("normal_map"),
-            arr("specular_map"), fused=st.n_meshes >= 2,
+            arr("specular_map"), reach=reach[-1], fused=st.n_meshes >= 2,
         ))
     ft, fts = fused_tables(
-        st, [leaves[f"meshes.{i}.v"] for i in range(st.n_meshes)])
+        st, [leaves[f"meshes.{i}.v"] for i in range(st.n_meshes)], reach)
     lights = tuple(
         LightData(**{k: t(f"lights.{i}.{k}") for k in _LIGHT_KEYS},
                   kind=kind, samples=samples)

@@ -1,6 +1,9 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points, and the
+deterministic-algorithms mode of its train step and SSAA scatter."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -17,3 +20,27 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch path on the CPU"
         )
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms(True) for the block, then the
+    previous mode: on CUDA, an op whose backward may accumulate with
+    atomics (the gathers vgeoT[:, idx] and the per-object tables) takes
+    its deterministic kernel or raises. The mode's other effect, filling
+    every new tensor with NaN (torch.utils.deterministic.
+    fill_uninitialized_memory), is off for the block: it guards against
+    reading memory before writing it and decides no bit of a result, and
+    it cost ~13% of the flagship step on an H100 (PERF.md)."""
+    import torch.utils.deterministic as det
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    prev_fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        det.fill_uninitialized_memory = prev_fill
+        torch.use_deterministic_algorithms(prev, warn_only=prev_warn)

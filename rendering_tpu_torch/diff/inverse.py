@@ -27,12 +27,12 @@ from the build-time tables, as the JAX package's does.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Sequence
 
 import torch
 
+from rendering_tpu_torch.device import deterministic_algorithms
 from rendering_tpu_torch.render.pipeline import render_scene
 
 Path = tuple
@@ -71,30 +71,6 @@ def apply_params(scene, params: dict, paths: Sequence[Path]):
     for p in paths:
         scene = _set(scene, tuple(p), params[_key(p)])
     return scene
-
-
-@contextlib.contextmanager
-def deterministic_algorithms():
-    """torch.use_deterministic_algorithms(True) for the block, then the
-    previous mode: on CUDA, an op whose backward may accumulate with
-    atomics (the gathers vgeoT[:, idx] and the per-object tables) takes
-    its deterministic kernel or raises. The mode's other effect, filling
-    every new tensor with NaN (torch.utils.deterministic.
-    fill_uninitialized_memory), is off for the block: it guards against
-    reading memory before writing it and decides no bit of a result, and
-    it cost ~13% of the flagship step on an H100 (PERF.md)."""
-    import torch.utils.deterministic as det
-
-    prev = torch.are_deterministic_algorithms_enabled()
-    prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    prev_fill = det.fill_uninitialized_memory
-    torch.use_deterministic_algorithms(True)
-    det.fill_uninitialized_memory = False
-    try:
-        yield
-    finally:
-        det.fill_uninitialized_memory = prev_fill
-        torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
 
 
 def adam(params: list) -> torch.optim.Optimizer:

@@ -120,8 +120,10 @@ def build_flagship_scene(
     the procedural mesh of n_tris (default 250k) triangles. Runs on the
     CUDA device unless `device` says otherwise."""
     st = RenderSettings(
-        width=width, height=height, background_color=(0.52, 0.8, 0.92),
-        enable_ssaa=enable_ssaa,
+        width=width, height=height, ac_penalty=3,
+        background_color=(0.52, 0.8, 0.92), enable_ssaa=enable_ssaa,
+        enable_output=False, output_progress=False,
+        image_name="shotgun_bench",
     )
     if settings_overrides:
         st = st.replace(**settings_overrides)
@@ -164,8 +166,10 @@ def build_multimesh_scene(
     reference assets). Runs on the CUDA device unless `device` says
     otherwise."""
     st = RenderSettings(
-        width=width, height=height, background_color=(0.52, 0.8, 0.92),
-        enable_ssaa=False,
+        width=width, height=height, ac_penalty=3,
+        background_color=(0.52, 0.8, 0.92), enable_ssaa=False,
+        enable_output=False, output_progress=False,
+        image_name="multimesh_bench",
     )
     if settings_overrides:
         st = st.replace(**settings_overrides)

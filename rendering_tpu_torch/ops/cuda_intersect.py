@@ -8,6 +8,13 @@ closest hit for primary rays and any hit for the batched shadow rays
 (K1, K2), and its fused multi-mesh entry `intersect_fused` (K5): the
 same walk over every mesh's tables concatenated, with the closest hit
 remapped to (mesh, gather column) through an idmap in the epilogue.
+Each comes in the kernel's two optional modes as well: the root filter
+(K4, `root_filter`), which accepts a hit only where the ray also crosses
+the triangle's BVH reach box (table rows 9-14; it replicates the
+reference's clipping of a rotated mesh by its root box), and the test
+counters (K3, `collect_stats`), [tri_tests, box_tests] with the Pallas
+kernel's semantics. Every combination is its own launcher with its own
+launch count (`KERNELS`).
 They are bound by f32 operations (57 instructions per ray-triangle pair,
 each issued alone under -fmad=false; the tables are only ~16 MB at 250k
 triangles), so the design keeps triangle rows in shared memory for a
@@ -28,7 +35,10 @@ Pipeline of one query (`closest_hit` / `any_hit`):
 
 The Pallas grid's step-table compaction (`_pair_tables`, the bucket
 ladder and its all-pairs fallbacks) exists only because a Pallas grid
-is static; the kernel's per-tile loop replaces it.
+is static; the kernel's per-tile loop replaces it. The counters count
+the fine 512-ray tiling: the Pallas kernel's coarse fallback retiling
+(more than 200_000 / 12 tile-super pairs) counts box tests at its own
+tile width.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -70,9 +81,8 @@ class IntersectTables:
     differentiable re-evaluation of the picked triangle sees the new
     vertices.
 
-    tri:  (Cs, 16, n_sub*tc) f32 — rows v0 xyz, e1 xyz, e2 xyz, then
-          zeros (rows 9-14 hold the root filter's reach boxes in the JAX
-          package; that filter comes with a later slice).
+    tri:  (Cs, 16, n_sub*tc) f32 — rows v0 xyz, e1 xyz, e2 xyz, reach_lo
+          xyz, reach_hi xyz (the root filter's boxes), then zeros.
     cbox: (Cs*n_sub, 8) f32 — cull-chunk AABBs [lo xyz, hi xyz, 0, 0];
           pad chunks hold inverted boxes.
     sbox: (Cs, 8) f32 — super-chunk AABBs for the pre-pass."""
@@ -100,17 +110,21 @@ def default_tri_chunk(n_tris: int) -> int:
 
 
 def build_intersect_tables(v: np.ndarray, *, tri_chunk: int,
-                           n_sub: int | None = None) -> IntersectTables:
+                           n_sub: int | None = None,
+                           reach=None) -> IntersectTables:
     """Host numpy build of the chunk tables from Morton-ordered vertices
-    v (T, 3, 3) — `pallas_intersect.build_intersect_tables` without the
-    reach rows. Zero-padded triangles fail the det epsilon in both
-    culling modes; padded cull chunks get inverted boxes."""
-    n_sub, tri, cbox, sbox = _table_arrays(v, tri_chunk, n_sub)
+    v (T, 3, 3) — `pallas_intersect.build_intersect_tables`. reach:
+    (reach_lo, reach_hi), each (T, 3) in the same order, the mesh's BVH
+    reach boxes (rows 9-14); None puts each triangle's own bounds there,
+    which makes the root filter accept every hit. Zero-padded triangles
+    fail the det epsilon in both culling modes; padded cull chunks get
+    inverted boxes."""
+    n_sub, tri, cbox, sbox = _table_arrays(v, tri_chunk, n_sub, reach)
     return IntersectTables(tri_chunk, n_sub, torch.from_numpy(tri),
                            torch.from_numpy(cbox), torch.from_numpy(sbox))
 
 
-def _table_arrays(v, tri_chunk: int, n_sub: int | None):
+def _table_arrays(v, tri_chunk: int, n_sub: int | None, reach=None):
     """(n_sub, tri, cbox, sbox) of `build_intersect_tables` as numpy."""
     v = np.asarray(v, np.float32)
     T = int(v.shape[0])
@@ -122,12 +136,15 @@ def _table_arrays(v, tri_chunk: int, n_sub: int | None):
     n_super = -(-n_chunks // n_sub)
     n_chunks = n_super * n_sub
     t_pad = n_chunks * tri_chunk - T
+    reach_lo, reach_hi = ((v.min(axis=1), v.max(axis=1)) if reach is None
+                          else reach)
 
     v0 = v[:, 0]
     e1 = v[:, 1] - v0
     e2 = v[:, 2] - v0
     rows = np.concatenate(
-        [v0, e1, e2, np.zeros((T, 7), np.float32)], axis=1
+        [v0, e1, e2, reach_lo, reach_hi, np.zeros((T, 1), np.float32)],
+        axis=1,
     ).astype(np.float32)
     rows = np.pad(rows, ((0, t_pad), (0, 0)))
     tri = np.ascontiguousarray(
@@ -166,7 +183,8 @@ class FusedTables:
             last real triangle.
     n_meshes, t_total: all meshes of the scene and their triangle total
             (excluded meshes still advance the column offsets).
-    any_clipped: some included mesh pokes outside its root box."""
+    any_clipped: some included mesh pokes outside its root box, so the
+            queries need the root filter (use_ac and any_clipped)."""
 
     geo: IntersectTables
     idmap: torch.Tensor
@@ -179,13 +197,18 @@ class FusedTables:
                                    idmap=self.idmap.to(device))
 
 
-def build_fused_tables(vs, clipped_flags, include=None) -> FusedTables | None:
+def build_fused_tables(vs, clipped_flags, include=None,
+                       reach=None) -> FusedTables | None:
     """Host numpy build of the fused tables from every mesh's
     Morton-ordered vertices vs[i] (T_i, 3, 3), in scene sub order, equal
-    bit for bit to `pallas_intersect.build_fused_tables` in the table
-    rows 0-8, cbox, sbox and idmap. include[i] False leaves mesh i out
-    (the shadow tables leave out transparent meshes). Returns None when
-    no included mesh has triangles."""
+    bit for bit to `pallas_intersect.build_fused_tables`. A clipped mesh
+    (clipped_flags[i]) puts its BVH reach boxes reach[i] = (lo, hi) into
+    rows 9-14; an unclipped one its triangles' own bounds, on which the
+    root filter accepts every hit, so one filter flag for the whole
+    query (use_ac and any_clipped) gates each mesh exactly as per mesh.
+    include[i] False leaves mesh i out (the shadow tables leave out
+    transparent meshes). Returns None when no included mesh has
+    triangles."""
     n = len(vs)
     if include is None:
         include = [True] * n
@@ -201,8 +224,13 @@ def build_fused_tables(vs, clipped_flags, include=None) -> FusedTables | None:
     for i, v in enumerate(vs):
         t_i = ts[i]
         if include[i] and t_i:
-            any_clipped = any_clipped or bool(clipped_flags[i])
-            _, tri, cbox, sbox = _table_arrays(v, tc, SUB_PER_SUPER)
+            clipped = bool(clipped_flags[i])
+            if clipped and (reach is None or reach[i] is None):
+                raise ValueError(f"mesh {i} is clipped by its root box and "
+                                 f"needs its reach boxes")
+            any_clipped = any_clipped or clipped
+            _, tri, cbox, sbox = _table_arrays(
+                v, tc, SUB_PER_SUPER, reach[i] if clipped else None)
             tris.append(tri)
             cboxes.append(cbox)
             sboxes.append(sbox)
@@ -329,8 +357,8 @@ def prepare(tb: IntersectTables, ro3, rd3, t_limit=None) -> Prepared:
 
 
 def _mt_block(tri_rows, ray, backface_culling: bool):
-    """Moller-Trumbore of a (m, 9, tc) triangle block against (m, 6, BR)
-    rays [ro, rd], in `_intersect_chunk`'s f32 order. Returns t, ok
+    """Moller-Trumbore of a (m, 9+, tc) triangle block against (m, 6+,
+    BR) rays [ro, rd], in `_intersect_chunk`'s f32 order. Returns t, ok
     (m, tc, BR)."""
     v0 = [tri_rows[:, c, :, None] for c in range(3)]
     e1 = [tri_rows[:, 3 + c, :, None] for c in range(3)]
@@ -356,16 +384,48 @@ def _mt_block(tri_rows, ray, backface_culling: bool):
     return t, ok
 
 
+def _reach_block(tri_rows, ray):
+    """The root filter's literal reference slab (`pallas_intersect.py:
+    338-354`) of (m, 15, tc) triangle rows' reach boxes (rows 9-14)
+    against (m, 9+, BR) rays [ro, rd, 1/rd]: sign swap by inv < 0, then
+    (lo - ro) * inv, the negated pairwise comparisons and the select
+    updates; NaN corners are accepted as the reference's comparisons
+    accept them. Returns box_hit (m, tc, BR)."""
+    def tpair(c):
+        lo_c = tri_rows[:, 9 + c, :, None]
+        hi_c = tri_rows[:, 12 + c, :, None]
+        ro_c = ray[:, c, None, :]
+        inv_c = ray[:, 6 + c, None, :]
+        neg = inv_c < 0
+        lo = torch.where(neg, hi_c, lo_c)
+        hi = torch.where(neg, lo_c, hi_c)
+        return (lo - ro_c) * inv_c, (hi - ro_c) * inv_c
+
+    tmin, tmax = tpair(0)
+    tymin, tymax = tpair(1)
+    box_hit = ~((tmin > tymax) | (tymin > tmax))
+    tmin = torch.where(tymin > tmin, tymin, tmin)
+    tmax = torch.where(tymax < tmax, tymax, tmax)
+    tzmin, tzmax = tpair(2)
+    return box_hit & ~((tmin > tzmax) | (tzmin > tmax))
+
+
 @torch.no_grad()
 def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
-                    backface_culling: bool, stats: dict | None = None):
+                    backface_culling: bool, root_filter: bool = False,
+                    collect_stats: bool = False, stats: dict | None = None):
     """The kernel's function in plain PyTorch: the TPU formulation
     vectorised over tiles. For visit rank k, every tile with a k-th live
     super gathers it; for each sub-chunk j a (tiles, tc, 512)
-    Moller-Trumbore block, the min over rows, then `better = t_min <
-    t_prev`. Returns raw (t (Rp,), tri (Rp,) int32) in padded
-    chunk-space ids. With a `stats` dict, adds the ray-triangle pairs
-    the per-ray cull requires under "pairs" (the work bound)."""
+    Moller-Trumbore block (and with `root_filter` the reach-box slab),
+    the min over rows, then `better = t_min < t_prev`. Returns raw
+    (t (Rp,), tri (Rp,) int32) in padded chunk-space ids; with
+    `collect_stats` also the K3 counters box_tests and tri_tests (int64
+    0-d tensors). A `stats` dict receives the work that bounds the
+    kernel: "pairs", the ray-triangle pairs the per-ray cull requires
+    (= tri_tests), and "accepts", the pairs Moller-Trumbore accepts
+    below the ray's t at the block's start (where the kernel runs the
+    root filter's slab)."""
     n_tiles = prep.n_tiles
     tc, n_sub = tb.tri_chunk, tb.n_sub
     cs = tb.sbox.shape[0]
@@ -375,9 +435,11 @@ def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
     tri_all = torch.full((n_tiles, RAY_TILE), -1, dtype=torch.int32,
                          device=dev)
     tri_tab = tb.tri.reshape(cs, 16, n_sub, tc)
+    n_rows = 15 if root_filter else 9
     boxes_tab = tb.cbox.reshape(cs, n_sub, 8)
     rows = torch.arange(tc, dtype=torch.int32, device=dev)[None, :, None]
-    pairs = 0
+    count = collect_stats or stats is not None
+    pairs = accepts = 0
     for s in range(0, n_tiles, _PLAIN_TILES):
         tiles = torch.arange(s, min(s + _PLAIN_TILES, n_tiles), device=dev)
         counts = prep.counts[tiles]
@@ -393,16 +455,20 @@ def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
                 t_run = t_all[idx]
                 live = live0[:, :, j] & ~((ctmin[:, :, j] >= t_run)
                                           | (t_run < 0))
-                if stats is not None:
+                if count:
                     pairs += int(live.sum()) * tc
                 go = live.any(dim=1)
                 if not bool(go.any()):
                     continue
                 sel, sup_j, ray_j = idx[go], sup[go], ray[go]
                 t_prev = t_run[go]
-                t, ok = _mt_block(tri_tab[sup_j, 0:9, j], ray_j,
-                                  backface_culling)
+                tri_j = tri_tab[sup_j, 0:n_rows, j]
+                t, ok = _mt_block(tri_j, ray_j, backface_culling)
                 ok = ok & (t < t_prev[:, None, :])
+                if stats is not None:
+                    accepts += int(ok.sum())
+                if root_filter:
+                    ok = ok & _reach_block(tri_j, ray_j)
                 if anyhit:
                     hit = ok.any(dim=1)
                     t_all[sel] = torch.where(hit, -1.0, t_prev)
@@ -418,7 +484,13 @@ def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
                 tri_all[sel] = torch.where(better, base + row, tri_all[sel])
     if stats is not None:
         stats["pairs"] = stats.get("pairs", 0) + pairs
-    return t_all.reshape(-1), tri_all.reshape(-1)
+        stats["accepts"] = stats.get("accepts", 0) + accepts
+    out = (t_all.reshape(-1), tri_all.reshape(-1))
+    if not collect_stats:
+        return out
+    box = int(prep.counts.sum()) * n_sub * RAY_TILE
+    return out + tuple(torch.tensor(x, dtype=torch.int64, device=dev)
+                       for x in (box, pairs))
 
 
 # ---- the CUDA kernels ----------------------------------------------------
@@ -463,125 +535,168 @@ def _library():
         path, _ = build_library()
         lib = ctypes.CDLL(path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name, args in (
-            ("rt_closest_hit", [ptr] * 7 + [i32] * 6 + [ptr]),
-            ("rt_any_hit", [ptr] * 7 + [i32] * 6 + [ptr]),
-            ("rt_closest_hit_fused", [ptr] * 9 + [i32] * 7 + [ptr]),
-        ):
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
+        lib.rt_intersect.argtypes = [ptr] * 10 + [i32] * 11 + [ptr]
+        lib.rt_intersect.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+@dataclasses.dataclass
 class CudaKernel:
-    """One launcher of csrc/mesh_intersect.cu. `launches` counts the
-    launches made through it. A fused launcher (`rt_closest_hit_fused`)
-    also takes the fused tables' idmap."""
+    """One variant of csrc/mesh_intersect.cu's kernel: closest or any
+    hit, over one mesh's tables or fused ones (the fused closest hit
+    remaps through the idmap), with or without the root filter (K4) and
+    the counters (K3). `launches` counts the launches made through it."""
 
-    def __init__(self, symbol: str, fused: bool = False):
-        self.symbol = symbol
-        self.fused = fused
-        self.launches = 0
+    name: str
+    anyhit: bool
+    fused: bool
+    root_filter: bool
+    collect_stats: bool
+    launches: int = 0
 
     def __call__(self, tb: IntersectTables, prep: Prepared, *,
                  backface_culling: bool, idmap: torch.Tensor | None = None):
-        """Raw (t (Rp,), tri (Rp,) int32) in padded chunk-space ids; a
-        fused launcher returns (t, mid, vid) through idmap instead, with
-        t = FMAX, mid = -1 and vid = 0 on a miss."""
+        """Raw (t (Rp,), tri (Rp,) int32) in padded chunk-space ids; the
+        fused closest hit returns (t, mid, vid) through idmap instead,
+        with t = FMAX, mid = -1 and vid = 0 on a miss. With the counters
+        the tuple ends in box_tests, tri_tests (int64 0-d tensors)."""
+        remap = self.fused and not self.anyhit
         aux = prep.aux
         checks = [("tri", tb.tri, torch.float32),
                   ("cbox", tb.cbox, torch.float32),
                   ("aux", aux, torch.float32),
                   ("torder", prep.torder, torch.int32),
                   ("counts", prep.counts, torch.int32)]
-        if self.fused:
+        if remap:
             if idmap is None:
-                raise ValueError(f"{self.symbol}: needs the fused idmap")
+                raise ValueError(f"{self.name}: needs the fused idmap")
             checks.append(("idmap", idmap, torch.int32))
         for name, x, dt in checks:
             if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
-                raise ValueError(f"{self.symbol}: {name} must be a contiguous "
+                raise ValueError(f"{self.name}: {name} must be a contiguous "
                                  f"CUDA {dt} tensor, got {x.dtype} on "
                                  f"{x.device}")
         if tb.tri_chunk % _PIECE:
-            raise ValueError(f"{self.symbol}: tri_chunk must be a multiple of "
+            raise ValueError(f"{self.name}: tri_chunk must be a multiple of "
                              f"{_PIECE}, got {tb.tri_chunk}")
         cs = tb.sbox.shape[0]
         n_pad = cs * tb.n_sub * tb.tri_chunk
-        if self.fused and tuple(idmap.shape) != (2, n_pad):
-            raise ValueError(f"{self.symbol}: idmap must be (2, {n_pad}), got "
+        if remap and tuple(idmap.shape) != (2, n_pad):
+            raise ValueError(f"{self.name}: idmap must be (2, {n_pad}), got "
                              f"{tuple(idmap.shape)}")
         lib = _library()
-        n_tiles = prep.n_tiles
         rp = aux.shape[1]
-        outs = [torch.empty((rp,), dtype=torch.float32, device=aux.device)]
-        outs += [torch.empty((rp,), dtype=torch.int32, device=aux.device)
-                 for _ in range(2 if self.fused else 1)]
-        ins = [tb.tri, tb.cbox, aux, prep.torder, prep.counts]
-        ints = [n_tiles, rp, cs, tb.n_sub, tb.tri_chunk]
-        if self.fused:
-            ins.append(idmap)
-            ints.append(n_pad)
-        with torch.cuda.device(aux.device):  # launch on the tensors' card
-            rc = getattr(lib, self.symbol)(
-                *(x.data_ptr() for x in ins + outs), *ints,
-                int(backface_culling),
-                torch.cuda.current_stream(aux.device).cuda_stream,
+        dev = aux.device
+        outs = [torch.empty((rp,), dtype=torch.float32, device=dev)]
+        outs += [torch.empty((rp,), dtype=torch.int32, device=dev)
+                 for _ in range(2 if remap else 1)]
+        counters = (torch.zeros((2,), dtype=torch.int64, device=dev)
+                    if self.collect_stats else None)
+
+        def ptr(x):
+            return None if x is None else x.data_ptr()
+
+        with torch.cuda.device(dev):  # launch on the tensors' card
+            rc = lib.rt_intersect(
+                tb.tri.data_ptr(), tb.cbox.data_ptr(), aux.data_ptr(),
+                prep.torder.data_ptr(), prep.counts.data_ptr(),
+                ptr(idmap if remap else None), outs[0].data_ptr(),
+                outs[1].data_ptr(), ptr(outs[2] if remap else None),
+                ptr(counters), prep.n_tiles, rp, cs, tb.n_sub, tb.tri_chunk,
+                n_pad, int(backface_culling), int(self.anyhit), int(remap),
+                int(self.root_filter), int(self.collect_stats),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: "
+            raise RuntimeError(f"{self.name} launch failed: "
                                f"{lib.rt_error_string(rc).decode()}")
         self.launches += 1
+        if self.collect_stats:
+            return (*outs, counters[1], counters[0])
         return tuple(outs)
 
 
-closest_hit_kernel = CudaKernel("rt_closest_hit")
-any_hit_kernel = CudaKernel("rt_any_hit")
-# K5: the fused closest hit remaps through idmap in its epilogue; the
-# fused any hit is K2's entry over the fused tables, counted apart.
-fused_closest_hit_kernel = CudaKernel("rt_closest_hit_fused", fused=True)
-fused_any_hit_kernel = CudaKernel("rt_any_hit")
+def variant_name(*, anyhit: bool, fused: bool, root_filter: bool,
+                 collect_stats: bool) -> str:
+    """A variant's name: closest_hit / any_hit, "fused_" before it,
+    "_rootfilter" and "_stats" after it."""
+    return (("fused_" if fused else "") + ("any_hit" if anyhit else
+                                           "closest_hit")
+            + ("_rootfilter" if root_filter else "")
+            + ("_stats" if collect_stats else ""))
+
+
+# Every variant, by name. The fused any hit is the any-hit walk over the
+# fused tables, counted apart from the single-mesh one.
+KERNELS = {
+    variant_name(**kw): CudaKernel(variant_name(**kw), **kw)
+    for kw in (dict(zip(("anyhit", "fused", "root_filter", "collect_stats"),
+                        flags))
+               for flags in itertools.product((False, True), repeat=4))
+}
+closest_hit_kernel = KERNELS["closest_hit"]
+any_hit_kernel = KERNELS["any_hit"]
+fused_closest_hit_kernel = KERNELS["fused_closest_hit"]
+fused_any_hit_kernel = KERNELS["fused_any_hit"]
+
+
+def _check_device(prep: Prepared) -> None:
+    if prep.aux.device.type != "cpu":
+        raise ValueError(f"no intersection path for device {prep.aux.device}")
 
 
 def run_query(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
-              backface_culling: bool):
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
+              backface_culling: bool, root_filter: bool = False,
+              collect_stats: bool = False):
+    """The kernel variant for CUDA tensors, its plain version for CPU
+    tensors."""
     if prep.aux.is_cuda:
-        kernel = any_hit_kernel if anyhit else closest_hit_kernel
+        kernel = KERNELS[variant_name(anyhit=anyhit, fused=False,
+                                      root_filter=root_filter,
+                                      collect_stats=collect_stats)]
         return kernel(tb, prep, backface_culling=backface_culling)
-    if prep.aux.device.type != "cpu":
-        raise ValueError(f"no intersection path for device {prep.aux.device}")
+    _check_device(prep)
     return intersect_plain(tb, prep, anyhit=anyhit,
-                           backface_culling=backface_culling)
+                           backface_culling=backface_culling,
+                           root_filter=root_filter,
+                           collect_stats=collect_stats)
 
 
 @torch.no_grad()
 def closest_hit(tb: IntersectTables, ro3, rd3, t_limit=None, *,
-                backface_culling: bool = True):
+                backface_culling: bool = True, root_filter: bool = False,
+                collect_stats: bool = False):
     """Closest accepted hit below t_limit over all mesh triangles.
     ro3/rd3 (3, R). Returns (t (R,), tri (R,) int32): Morton-order
-    triangle id or -1, and t = FMAX on a miss."""
+    triangle id or -1, and t = FMAX on a miss; with `collect_stats` also
+    box_tests, tri_tests."""
     prep = prepare(tb, ro3, rd3, t_limit)
-    t, tri = run_query(tb, prep, anyhit=False,
-                       backface_culling=backface_culling)
+    t, tri, *counters = run_query(tb, prep, anyhit=False,
+                                  backface_culling=backface_culling,
+                                  root_filter=root_filter,
+                                  collect_stats=collect_stats)
     t, tri = t[:prep.n_rays], tri[:prep.n_rays]
-    return torch.where(tri >= 0, t, FMAX), tri
+    return (torch.where(tri >= 0, t, FMAX), tri, *counters)
 
 
 @torch.no_grad()
 def any_hit(tb: IntersectTables, ro3, rd3, t_limit=None, *,
-            backface_culling: bool = True):
+            backface_culling: bool = True, root_filter: bool = False,
+            collect_stats: bool = False):
     """Occlusion query: (R,) bool, True where some triangle is hit below
-    t_limit. Rays entering with t_limit < 0 are resolved already and
-    cost no intersection work."""
+    t_limit; with `collect_stats` (occluded, box_tests, tri_tests). Rays
+    entering with t_limit < 0 are resolved already and cost no
+    intersection work."""
     prep = prepare(tb, ro3, rd3, t_limit)
-    _, tri = run_query(tb, prep, anyhit=True,
-                       backface_culling=backface_culling)
-    return tri[:prep.n_rays] >= 0
+    _, tri, *counters = run_query(tb, prep, anyhit=True,
+                                  backface_culling=backface_culling,
+                                  root_filter=root_filter,
+                                  collect_stats=collect_stats)
+    occ = tri[:prep.n_rays] >= 0
+    return (occ, *counters) if collect_stats else occ
 
 
 # ---- K5: one query over the fused tables of every mesh -------------------
@@ -598,45 +713,60 @@ def fused_remap(idmap, t, tri):
 
 @torch.no_grad()
 def intersect_fused_plain(ft: FusedTables, prep: Prepared, *, anyhit: bool,
-                          backface_culling: bool, stats: dict | None = None):
+                          backface_culling: bool, root_filter: bool = False,
+                          collect_stats: bool = False,
+                          stats: dict | None = None):
     """K5's function in plain PyTorch: the single-mesh plain version over
     the fused geometry, then the idmap remap in closest mode. Returns
-    (t, mid, vid) (closest) or raw (t, tri) (any), all (Rp,)."""
-    t, tri = intersect_plain(ft.geo, prep, anyhit=anyhit,
-                             backface_culling=backface_culling, stats=stats)
-    return (t, tri) if anyhit else fused_remap(ft.idmap, t, tri)
+    (t, mid, vid) (closest) or raw (t, tri) (any), all (Rp,), then with
+    `collect_stats` box_tests, tri_tests."""
+    t, tri, *counters = intersect_plain(
+        ft.geo, prep, anyhit=anyhit, backface_culling=backface_culling,
+        root_filter=root_filter, collect_stats=collect_stats, stats=stats)
+    out = (t, tri) if anyhit else fused_remap(ft.idmap, t, tri)
+    return (*out, *counters)
 
 
 def run_fused_query(ft: FusedTables, prep: Prepared, *, anyhit: bool,
-                    backface_culling: bool):
-    """K5 for CUDA tensors, its plain version for CPU tensors."""
+                    backface_culling: bool, root_filter: bool = False,
+                    collect_stats: bool = False):
+    """K5's variant for CUDA tensors, its plain version for CPU
+    tensors."""
     if prep.aux.is_cuda:
-        if anyhit:
-            return fused_any_hit_kernel(ft.geo, prep,
-                                        backface_culling=backface_culling)
-        return fused_closest_hit_kernel(ft.geo, prep, idmap=ft.idmap,
-                                        backface_culling=backface_culling)
-    if prep.aux.device.type != "cpu":
-        raise ValueError(f"no intersection path for device {prep.aux.device}")
+        kernel = KERNELS[variant_name(anyhit=anyhit, fused=True,
+                                      root_filter=root_filter,
+                                      collect_stats=collect_stats)]
+        return kernel(ft.geo, prep, backface_culling=backface_culling,
+                      idmap=None if anyhit else ft.idmap)
+    _check_device(prep)
     return intersect_fused_plain(ft, prep, anyhit=anyhit,
-                                 backface_culling=backface_culling)
+                                 backface_culling=backface_culling,
+                                 root_filter=root_filter,
+                                 collect_stats=collect_stats)
 
 
 @torch.no_grad()
 def intersect_fused(ft: FusedTables, ro3, rd3, t_limit=None, *,
-                    mode: str = "closest", backface_culling: bool = True):
-    """One query over every fused mesh (`pallas_intersect.intersect_fused`
-    without its root filter and counters). mode="closest" returns (t,
-    mid, vid) (R,): the winner's mesh sub index (-1 on a miss) and its
-    global gather-table column (0 on a miss); cross-mesh ties at equal t
-    resolve by chunk visit order, as within one mesh. mode="any" returns
-    occluded (R,) bool; rays entering with t_limit < 0 cost nothing."""
+                    mode: str = "closest", backface_culling: bool = True,
+                    root_filter: bool = False, collect_stats: bool = False):
+    """One query over every fused mesh (`pallas_intersect.intersect_fused`).
+    mode="closest" returns (t, mid, vid) (R,): the winner's mesh sub
+    index (-1 on a miss) and its global gather-table column (0 on a
+    miss); cross-mesh ties at equal t resolve by chunk visit order, as
+    within one mesh. mode="any" returns occluded (R,) bool; rays
+    entering with t_limit < 0 cost nothing. With `collect_stats` the
+    result ends in box_tests, tri_tests."""
     if mode not in ("closest", "any"):
         raise ValueError(f"mode must be 'closest' or 'any', got {mode!r}")
     prep = prepare(ft.geo, ro3, rd3, t_limit)
     n = prep.n_rays
-    out = run_fused_query(ft, prep, anyhit=mode == "any",
-                          backface_culling=backface_culling)
-    if mode == "any":
-        return out[1][:n] >= 0
-    return tuple(x[:n] for x in out)
+    anyhit = mode == "any"
+    out = run_fused_query(ft, prep, anyhit=anyhit,
+                          backface_culling=backface_culling,
+                          root_filter=root_filter,
+                          collect_stats=collect_stats)
+    counters = out[-2:] if collect_stats else ()
+    if anyhit:
+        occ = out[1][:n] >= 0
+        return (occ, *counters) if collect_stats else occ
+    return (*(x[:n] for x in out[:3]), *counters)

@@ -9,7 +9,10 @@ re-evaluated from gathered triangle rows with plain tensor math, so the
 render stays differentiable with fixed topology. Nothing writes in place
 into scene tensors. A scene of one mesh queries that mesh's tables (K1,
 K2); a scene of two or more queries the fused tables of all of them at
-once (K5). The gather tables come from `pipeline.derive_mesh_tables`.
+once (K5). With useAC, a mesh clipped by its root box is queried
+through the root filter (K4); with collectStatistics the queries count
+their tests (K3) into the stats. The gather tables come from
+`pipeline.derive_mesh_tables`.
 
 Reflective and transparent materials (continuation rays, the queue
 compaction) come with the bouncing slice: `integrate` raises
@@ -77,9 +80,43 @@ class Hit(NamedTuple):
 
 
 def zero_stats() -> dict:
-    """Render counters. The kernel's test counters (collectStatistics)
-    come with a later slice, so only rays_casted is counted."""
-    return {"rays_casted": 0.0}
+    """Render counters: rays traced, and the intersection kernels' box
+    and triangle tests (K3, counted only under collectStatistics; int64
+    tensors on the scene's device once counted). JAX's paths_dropped
+    comes with the bouncing slice."""
+    return {"rays_casted": 0.0, "accel_struct_tests": 0, "ray_tri_tests": 0}
+
+
+def add_stats(into: dict, other: dict) -> None:
+    """into[k] += other[k] for every counter."""
+    for k in into:
+        into[k] = into[k] + other[k]
+
+
+def _add_counters(stats: dict, counters) -> None:
+    """Add a query's (box_tests, tri_tests), if it counted, to stats."""
+    if counters:
+        box, tri = counters
+        stats["accel_struct_tests"] = stats["accel_struct_tests"] + box
+        stats["ray_tri_tests"] = stats["ray_tri_tests"] + tri
+
+
+def _occlusion(out, stats: dict, settings):
+    """An any-hit query's occlusion bits; its counters, when it counted,
+    go into stats."""
+    if not settings.collect_statistics:
+        return out
+    occ, *counters = out
+    _add_counters(stats, counters)
+    return occ
+
+
+def _query_flags(settings, clipped: bool) -> dict:
+    """The intersection query's root filter (useAC on a mesh its root
+    box clips) and counters (collectStatistics)."""
+    return dict(backface_culling=settings.use_backface_culling,
+                root_filter=bool(settings.use_ac and clipped),
+                collect_stats=settings.collect_statistics)
 
 
 def _per_obj(table, obj, n_objects: int):
@@ -96,26 +133,27 @@ def _per_obj3(table, obj, n_objects: int):
     return table.T[:, obj]
 
 
-def _mesh_hits(scene, ro3, rd3, t_limit):
+def _mesh_hits(scene, ro3, rd3, t_limit, stats):
     """Per-mesh closest hits, one query per mesh (K1): lists over meshes
     of (t, tri, u, v, geo), t re-evaluated and differentiable, FLT_MAX
-    where the mesh is not hit."""
+    where the mesh is not hit. Adds the queries' counters to stats."""
     settings = scene.static.settings
     q = ro3.shape[1]
     dev = ro3.device
     cols = [], [], [], [], []
-    for mesh in scene.meshes:
+    for mesh, ms in zip(scene.meshes, scene.static.meshes):
         if mesh.itables is None:  # a mesh without triangles
             hit = (torch.full((q,), FLT_MAX, device=dev),
                    torch.full((q,), -1, dtype=torch.int32, device=dev),
                    torch.zeros((q,), device=dev), torch.zeros((q,), device=dev),
                    torch.zeros((30, q), device=dev))
         else:
-            _, tri_d = cuda_intersect.closest_hit(
+            _, tri_d, *counters = cuda_intersect.closest_hit(
                 mesh.itables, ro3.detach(), rd3.detach(),
                 t_limit.detach() if t_limit is not None else None,
-                backface_culling=settings.use_backface_culling,
+                **_query_flags(settings, ms.clipped_by_root),
             )
+            _add_counters(stats, counters)
             # One gather of every per-triangle surface row: rows 0-8 feed
             # the differentiable hit re-evaluation, the rest surface_data.
             g = mesh.vgeoT[:, torch.clamp_min(tri_d, 0).long()]  # (30, Q)
@@ -133,18 +171,20 @@ def _mesh_hits(scene, ro3, rd3, t_limit):
     return cols
 
 
-def _fused_mesh_hits(scene, ro3, rd3, t_limit):
+def _fused_mesh_hits(scene, ro3, rd3, t_limit, stats):
     """_mesh_hits through the fused tables: one query over every mesh
     (K5). The winner comes back as (mesh sub index, column of the
     concatenated vgeoT), so the row gather and the re-evaluation also run
     once; every mesh's geo is that one gathered block."""
     st = scene.static
     settings = st.settings
-    _, mid, vid = cuda_intersect.intersect_fused(
-        scene.fused_itables, ro3.detach(), rd3.detach(),
+    ft = scene.fused_itables
+    _, mid, vid, *counters = cuda_intersect.intersect_fused(
+        ft, ro3.detach(), rd3.detach(),
         t_limit.detach() if t_limit is not None else None,
-        mode="closest", backface_culling=settings.use_backface_culling,
+        mode="closest", **_query_flags(settings, ft.any_clipped),
     )
+    _add_counters(stats, counters)
     g = scene.fused_vgeoT[:, vid.long()]  # (30, Q); vid is 0 on a miss
     t_r, u_r, v_r, _ = ray_triangle_r(
         ro3, rd3, g[0:3], g[3:6], g[6:9], settings.use_backface_culling
@@ -179,7 +219,7 @@ def trace_closest(scene, ro3, rd3, *, t_limit=None):
     hits = (_fused_mesh_hits if scene.fused_itables is not None
             else _mesh_hits)
     mesh_t, mesh_tri, mesh_u, mesh_v, mesh_geo = hits(scene, ro3, rd3,
-                                                      t_limit)
+                                                      t_limit, stats)
 
     cols = []
     for oi, kind in enumerate(st.obj_kinds):
@@ -255,20 +295,21 @@ def trace_occlusion(scene, ro3, rd3, dist):
         # One fused any-hit query (K5) over every opaque mesh; rays that
         # spheres or planes already occlude enter resolved.
         dist_m = torch.where(occluded, -1.0, dist)
-        occluded = occluded | cuda_intersect.intersect_fused(
+        out = cuda_intersect.intersect_fused(
             fts, ro3, rd3, dist_m, mode="any",
-            backface_culling=settings.use_backface_culling,
+            **_query_flags(settings, fts.any_clipped),
         )
-        return occluded, stats
-    for mesh, opq in zip(scene.meshes, opaque(KIND_MESH)):
+        return occluded | _occlusion(out, stats, settings), stats
+    for mesh, ms, opq in zip(scene.meshes, st.meshes, opaque(KIND_MESH)):
         if not opq or mesh.itables is None:
             continue
         # Rays already occluded enter resolved (t0 = -1 culls every chunk).
         dist_m = torch.where(occluded, -1.0, dist)
-        occluded = occluded | cuda_intersect.any_hit(
+        out = cuda_intersect.any_hit(
             mesh.itables, ro3, rd3, dist_m,
-            backface_culling=settings.use_backface_culling,
+            **_query_flags(settings, ms.clipped_by_root),
         )
+        occluded = occluded | _occlusion(out, stats, settings)
     return occluded, stats
 
 
@@ -474,7 +515,7 @@ def lighting(scene, hit_point3, normal3, rd3, nspec, *, stats, mask=None):
     if batch is not None:
         occ_all, s_stats = trace_occlusion(scene, batch.ro3, batch.rd3,
                                            batch.dist)
-        stats["rays_casted"] += s_stats["rays_casted"]
+        add_stats(stats, s_stats)
         for li, (inten3, ndl, spec_f) in enumerate(batch.terms):
             vis = (~occ_all[li * q:(li + 1) * q]).to(torch.float32)
             diffuse_c3 = diffuse_c3 + inten3 * (vis * ndl)[None, :]
@@ -498,7 +539,7 @@ def lighting(scene, hit_point3, normal3, rd3, nspec, *, stats, mask=None):
             (-ldn3).reshape(3, -1),
             dist_s.reshape(-1),
         )
-        stats["rays_casted"] += s_stats["rays_casted"]
+        add_stats(stats, s_stats)
         vis = (~occ).reshape(q, s_count).to(torch.float32)
         ndl = torch.clamp_min(dot_r(normal3[:, :, None], -ldn3), 0.0)
         refl_s3 = reflect_r(ldn3, normal3[:, :, None])        # (3, Q, S)
@@ -524,7 +565,7 @@ def bounce_block(scene, ro3, rd3, weight, active):
         scene, ro3, rd3,
         t_limit=torch.where(active, FLT_MAX, -1.0),
     )
-    stats["rays_casted"] += t_stats["rays_casted"]
+    add_stats(stats, t_stats)
     hit_m = hit.hit & active
     miss_m = (~hit.hit) & active
 
@@ -595,6 +636,6 @@ def integrate(scene, ro, rd, weight, *, ray_block: int = DEFAULT_RAY_BLOCK):
     for b in range(nb):
         contrib3, s = bounce_block(scene, ro3[:, b].contiguous(),
                                    rd3[:, b].contiguous(), w[b], w[b] > min_w)
-        stats["rays_casted"] += s["rays_casted"]
+        add_stats(stats, s)
         outs.append(contrib3)
     return torch.cat(outs, dim=1)[:, :r_in], stats

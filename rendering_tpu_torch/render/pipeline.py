@@ -1,5 +1,7 @@
-"""Render pipeline — the primary pass of `rendering_tpu.render.pipeline`
-for non-bouncing scenes.
+"""Render pipeline — `rendering_tpu.render.pipeline` for non-bouncing
+scenes: the primary pass and adaptive SSAA (scene.cpp:508-593: Sobel
+edge mask, the masked pixels compacted into a queue of static capacity,
+4 subsample rays each, their mean scattered back into the frame).
 
 Frames are channel-first f32 (3, H, W) tensors on the scene's device;
 `render` returns the usual (H, W, 3) numpy array. `render_scene` is
@@ -10,9 +12,11 @@ Parity quirk kept:
 the last pixel row and column are never rendered by the reference (its
 tile clamp, scene.cpp:369-372) and stay black.
 
-Adaptive SSAA, showNormals, showAC, the strip/progress renders and the
-SSAA/queue escalation come with later slices; `render_scene` raises
-NotImplementedError for them instead of rendering something else.
+`render` redoes a frame whose Sobel mask outgrew the SSAA capacity at a
+raised capacity (`escalating_render`). showNormals, showAC, bouncing
+materials and the strip/progress renders come with later slices;
+`render_scene` raises NotImplementedError for them instead of rendering
+something else.
 """
 
 from __future__ import annotations
@@ -21,9 +25,18 @@ import dataclasses
 
 import torch
 
-from rendering_tpu_torch.models.scene import check_supported
-from rendering_tpu_torch.render.integrator import DEFAULT_RAY_BLOCK, integrate
-from rendering_tpu_torch.render.raygen import primary_rays, tile_dims
+from rendering_tpu_torch.device import deterministic_algorithms
+from rendering_tpu_torch.ops.sobel import sobel_mask
+from rendering_tpu_torch.render.integrator import (
+    DEFAULT_RAY_BLOCK,
+    add_stats,
+    integrate,
+)
+from rendering_tpu_torch.render.raygen import (
+    primary_rays,
+    ssaa_subsample_rays,
+    tile_dims,
+)
 
 
 def quantize_u8(frame3):
@@ -92,42 +105,109 @@ def _primary_pass(scene, *, ray_block=DEFAULT_RAY_BLOCK):
     return torch.where(rows & cols, frame3, 0.0), stats
 
 
+def default_ssaa_capacity(settings) -> int:
+    """The SSAA queue's capacity unless a caller raises it:
+    ssaa_capacity_fraction of the pixels, at least 1."""
+    return max(1, int(settings.width * settings.height
+                      * settings.ssaa_capacity_fraction))
+
+
+def _ssaa_pass(scene, frame3, *, capacity: int, ray_block=DEFAULT_RAY_BLOCK):
+    """Sobel-adaptive refinement of a non-bouncing scene's frame (JAX
+    `_ssaa_pass`, its slot-accumulating branch). The first `capacity`
+    masked pixels in raster order are refined; the queue keeps its static
+    size, its fill lanes aiming at the clamped last pixel with weight 0,
+    so the rays traced and the counters equal the JAX package's. Returns
+    (frame3, n_masked (host int), stats)."""
+    st = scene.static
+    w, h = st.settings.width, st.settings.height
+    mask = sobel_mask(frame3.detach())
+    flat = mask.reshape(-1)
+    # torch.nonzero syncs with the host; the overflow check reads the
+    # mask size on the host anyway.
+    idx = torch.nonzero(flat).reshape(-1)[:capacity].to(torch.int32)
+    n_masked = int(flat.sum())
+    valid = torch.arange(capacity, device=frame3.device) < idx.numel()
+    idx_c = torch.nn.functional.pad(idx, (0, capacity - idx.numel()),
+                                    value=w * h - 1)
+    ro, rd, _, weight = ssaa_subsample_rays(scene, idx_c, valid, w)
+    slots3, stats = integrate(scene, ro, rd, weight, ray_block=ray_block)
+    # Subsample i of masked pixel k sits at slot i*capacity + k; the four
+    # sum in the JAX package's order. Fill lanes add exact zeros.
+    s = slots3.reshape(3, 4, capacity)
+    summed3 = ((s[:, 0] + s[:, 1]) + s[:, 2]) + s[:, 3]
+    with deterministic_algorithms():
+        accum3 = torch.zeros((3, w * h), device=frame3.device).index_add(
+            1, idx_c.long(), summed3)
+    frame3 = torch.where(mask[None], accum3.reshape(3, h, w), frame3)
+    return frame3, n_masked, stats
+
+
 def _check_slice(scene):
     st = scene.static
     settings = st.settings
     for flag, what, slice_ in (
-        (settings.enable_ssaa, "adaptive SSAA (enable_ssaa)", "SSAA"),
         (settings.show_normals, "showNormals", "debug-pass"),
         (settings.show_ac, "showAC", "debug-pass"),
-        (settings.collect_statistics,
-         "collectStatistics (the kernel's test counters, K3)", "statistics"),
         (st.any_bouncing, "reflective/transparent materials", "bouncing"),
     ):
         if flag:
             raise NotImplementedError(
                 f"{what} is not ported yet; it comes with the {slice_} "
                 f"slice of the port")
-    check_supported(st)
 
 
 def render_scene(scene, ray_block: int = DEFAULT_RAY_BLOCK,
-                 out_u8: bool = False):
+                 ssaa_capacity: int | None = None, out_u8: bool = False):
     """Render on the scene's device: returns (frame3 (3, H, W) f32, aux
-    dict with the stats counters), differentiable with respect to the
-    scene's float tensors. `out_u8` quantizes the frame on the device to
-    the BMP writer's u8 codes, (H, W, 3)."""
+    dict with the stats counters and the SSAA mask size "ssaa_masked"),
+    differentiable with respect to the scene's float tensors.
+    `ssaa_capacity` overrides the fraction-derived SSAA queue size.
+    `out_u8` quantizes the frame on the device to the BMP writer's u8
+    codes, (H, W, 3)."""
     _check_slice(scene)
+    settings = scene.static.settings
     scene = derive_mesh_tables(scene)
     frame3, stats = _primary_pass(scene, ray_block=ray_block)
-    aux = {"stats": stats, "ssaa_masked": 0}
+    n_masked = 0
+    if settings.enable_ssaa:
+        frame3, n_masked, s2 = _ssaa_pass(
+            scene, frame3, ray_block=ray_block,
+            capacity=ssaa_capacity or default_ssaa_capacity(settings))
+        add_stats(stats, s2)
+    aux = {"stats": stats, "ssaa_masked": n_masked}
     return (quantize_u8(frame3) if out_u8 else frame3), aux
+
+
+def escalating_render(render_fn, st):
+    """The SSAA-overflow redo of JAX `escalating_render`:
+    render_fn(ssaa_cap) -> (frame3, aux) runs again with the capacity
+    raised to the mask size (next power of two, at most the pixel count)
+    when more pixels were masked than the queue held, so the output does
+    not depend on the static capacity. (The transparent-queue redo comes
+    with the bouncing slice.)"""
+    ssaa_cap = None
+    while True:
+        frame3, aux = render_fn(ssaa_cap)
+        n_masked = int(aux["ssaa_masked"])
+        if not (st.enable_ssaa
+                and n_masked > (ssaa_cap or default_ssaa_capacity(st))):
+            return frame3, aux
+        ssaa_cap = min(st.width * st.height,
+                       1 << (max(n_masked, 2) - 1).bit_length())
 
 
 def render(scene, ray_block: int = DEFAULT_RAY_BLOCK, out_u8: bool = False):
     """Host-facing render: ((H, W, 3) numpy frame, aux). With out_u8 the
-    frame is the BMP writer's u8 codes, else f32 in [0, 1+]."""
+    frame is the BMP writer's u8 codes, else f32 in [0, 1+]. A frame
+    whose SSAA mask outgrew the queue is rendered again at a raised
+    capacity (`escalating_render`)."""
     with torch.no_grad():
-        frame, aux = render_scene(scene, ray_block=ray_block, out_u8=out_u8)
+        frame, aux = escalating_render(
+            lambda cap: render_scene(scene, ray_block=ray_block,
+                                     ssaa_capacity=cap, out_u8=out_u8),
+            scene.static.settings,
+        )
     if not out_u8:
         frame = frame.permute(1, 2, 0)
     return frame.cpu().numpy(), aux

@@ -63,3 +63,20 @@ def primary_rays(scene, offset: float = 1.0):
                     offset, offset)
     ro = scene.cam_pos.expand(rd.shape)
     return ro, rd, pix
+
+
+def ssaa_subsample_rays(scene, idx, valid, w: int):
+    """The 4 SSAA refinement rays of each masked pixel: the 0.25/0.75
+    subpixel grid plus the +0.5 of the reference's getPixels lambda
+    (scene.cpp:517-521). idx: (K,) int32 clamped pixel ids; valid: (K,)
+    bool (fill lanes get weight 0). Returns (ro, rd, pix, weight),
+    subsample-major: subsample i of masked pixel k sits at row i*K + k."""
+    xs = (idx % w).to(torch.float32)
+    ys = torch.div(idx, w, rounding_mode="floor").to(torch.float32)
+    wt = torch.where(valid, 0.25, 0.0)
+    rds = [pixel_dirs(scene, xs, ys, ox + 0.5, oy + 0.5)
+           for ox, oy in ((0.25, 0.25), (0.25, 0.75), (0.75, 0.25),
+                          (0.75, 0.75))]
+    rd = torch.cat(rds)
+    return (scene.cam_pos.expand(rd.shape), rd, idx.repeat(4),
+            wt.repeat(4))

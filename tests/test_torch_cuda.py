@@ -15,10 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from rendering_tpu_torch.accel.bvh import build_bvh, morton_order
 from rendering_tpu_torch.diff.inverse import apply_params, extract_params
 from rendering_tpu_torch.flagship import (
     build_flagship_scene,
     build_multimesh_scene,
+    procedural_mesh,
 )
 from rendering_tpu_torch.ops import cuda_intersect as ci
 from rendering_tpu_torch.render.pipeline import quantize_u8, render_scene
@@ -149,3 +151,111 @@ def test_grads_on_card_match_cpu(cuda):
         g_gpu = grads[1][k]
         assert torch.isfinite(g_gpu).all() and g_cpu.abs().sum() > 0, k
         assert float((g_gpu - g_cpu).norm()) <= 1e-3 * float(g_cpu.norm()), k
+
+
+def _clipped(n_tris, pos, seed=0):
+    """Morton-ordered vertices of a procedural mesh and its BVH reach
+    boxes under a root box that clips it (0.7 of its extent)."""
+    m = procedural_mesh(n_tris, pos=pos, size=(2, 2, 2), seed=seed)
+    v = m.v[morton_order(m.v)]
+    c = m.root_bounds.mean(axis=0)
+    root = (c + (m.root_bounds - c) * np.float32(0.7)).astype(np.float32)
+    bvh = build_bvh(v, root, ac_penalty=3)
+    return v, (bvh.reach_lo, bvh.reach_hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("root_filter,collect_stats",
+                         [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_rootfilter_stats_kernel_matches_plain(cuda, anyhit, root_filter,
+                                               collect_stats):
+    """K4 (root filter) and K3 (counters) against their plain versions
+    on a clipped mesh: ids equal, t bit-equal, counters exactly equal."""
+    v, reach = _clipped(20_000, pos=(-0.1, 0, -0.6))
+    tb = ci.build_intersect_tables(v, tri_chunk=64, reach=reach).to(cuda)
+    ro, rd, tl = (x.to(cuda) for x in _rays(8 * 512 + 77, seed=3))
+    prep = ci.prepare(tb, ro, rd, tl)
+    kernel = ci.KERNELS[ci.variant_name(
+        anyhit=anyhit, fused=False, root_filter=root_filter,
+        collect_stats=collect_stats)]
+    before = kernel.launches
+    out_k = ci.run_query(tb, prep, anyhit=anyhit, backface_culling=True,
+                         root_filter=root_filter, collect_stats=collect_stats)
+    out_p = ci.intersect_plain(tb, prep, anyhit=anyhit, backface_culling=True,
+                               root_filter=root_filter,
+                               collect_stats=collect_stats)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert len(out_k) == len(out_p) == (4 if collect_stats else 2)
+    assert int((out_k[1] >= 0).sum()) > 100
+    assert torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32))
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a.cpu(), b.cpu())
+    if collect_stats:
+        assert int(out_k[2]) > 0 and int(out_k[3]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_fused_rootfilter_stats_kernel_matches_plain(cuda, anyhit):
+    """K5 with the root filter and the counters over a clipped and an
+    unclipped mesh against its plain version."""
+    va, ra = _clipped(6000, pos=(-0.8, 0, -3.0), seed=1)
+    vb = procedural_mesh(4000, pos=(0.9, 0.2, -3.5), size=(1.2, 1.2, 1.2),
+                         seed=2).v
+    vb = vb[morton_order(vb)]
+    ft = ci.build_fused_tables([va, vb], [True, False],
+                               reach=[ra, None]).to(cuda)
+    assert ft.any_clipped
+    ro, rd, tl = (x.to(cuda) for x in _multimesh_rays(8 * 512 + 77, seed=4))
+    prep = ci.prepare(ft.geo, ro, rd, tl)
+    name = ci.variant_name(anyhit=anyhit, fused=True, root_filter=True,
+                           collect_stats=True)
+    before = ci.KERNELS[name].launches
+    out_k = ci.run_fused_query(ft, prep, anyhit=anyhit, backface_culling=True,
+                               root_filter=True, collect_stats=True)
+    out_p = ci.intersect_fused_plain(ft, prep, anyhit=anyhit,
+                                     backface_culling=True, root_filter=True,
+                                     collect_stats=True)
+    torch.cuda.synchronize()
+    assert ci.KERNELS[name].launches == before + 1
+    assert int((out_k[1] >= 0).sum()) > 100
+    assert torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32))
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+def test_scene_file_on_card_matches_cpu(cuda, tmp_path, monkeypatch, capsys):
+    """The CLI on a scene file with a rotated (clipped) OBJ, SSAA on and
+    collectStatistics=1: the card's BMP equals the CPU's within
+    tests/test_golden.py's DEFAULT_TOL measures, the printed statistics
+    are equal, and the root-filter counting kernels carried the render."""
+    from rendering_tpu_torch import cli
+    from rendering_tpu_torch.models.objloader import write_obj
+    from rendering_tpu_torch.utils.bmp import bmp_to_image, load_bmp
+
+    m = procedural_mesh(3000, pos=(0, 0, 0), size=(2, 2, 2))
+    write_obj(str(tmp_path / "m.obj"), m.v, m.uv, m.n)
+    (tmp_path / "s.scene").write_text(
+        "[options]\nwidth=96\nheight=54\nac_penalty=3\n"
+        "background_color=0.52,0.8,0.92\nenableOutput=0\n"
+        "outputProgress=0\ncollectStatistics=1\n\n"
+        "[light]\ntype=point\nposition=0,0,0\ncolor=1,1,1\nintensity=1.0\n\n"
+        "[object]\ntype=mesh\npos=-0.1,0,-0.6\nsize=2,2,2\ncolor=1,1,1\n"
+        "rot=0,100,0\nmaterial=phong,0.4,0.1,0.7,10.0\nname=m.obj\n\n[end]\n")
+    monkeypatch.chdir(tmp_path)
+    frames, printed = [], []
+    for dev in ("cpu", cuda):
+        for k in ci.KERNELS.values():
+            k.launches = 0
+        cli.main(["s.scene", "--output", f"{dev}.bmp"], device=dev)
+        printed.append(capsys.readouterr().out)
+        frames.append(bmp_to_image(load_bmp(f"{dev}.bmp")))
+    assert ci.KERNELS["closest_hit_rootfilter_stats"].launches == 2
+    assert ci.KERNELS["any_hit_rootfilter_stats"].launches == 2
+    assert printed[0] == printed[1] and "Ray triangle tests" in printed[0]
+    d = np.abs(frames[0].astype(np.int16) - frames[1].astype(np.int16))
+    d = d[1:-1, 1:-1]
+    assert (d > 1).mean() <= 0.006 and (d > 8).mean() <= 0.005

@@ -220,6 +220,9 @@ def test_render_is_differentiable():
     "reflective", "transparent",
 ])
 def test_unported_features_raise(change):
+    """Features of later slices raise NotImplementedError rather than
+    render something else. The two that the scene-file slice ported,
+    adaptive SSAA and the statistics counters, render instead."""
     overrides = {}
     if change in ("enable_ssaa", "show_normals", "show_ac",
                   "collect_statistics"):
@@ -231,15 +234,22 @@ def test_unported_features_raise(change):
 
         ts = dataclasses.replace(ts, static=dataclasses.replace(
             ts.static, mat_types=(_MAT_IDS[change],)))
+    if change in ("enable_ssaa", "collect_statistics"):
+        frame, aux = render_scene(ts)
+        assert torch.isfinite(frame).all()
+        counted = int(aux["stats"]["ray_tri_tests"]) > 0
+        assert counted == (change == "collect_statistics")
+        return
     with pytest.raises(NotImplementedError):
         render_scene(ts)
 
 
 def test_multi_mesh_and_clipped_mesh_raise():
-    """A mesh clipped by its root box needs the root filter (K4), which
-    comes with the scene-file slice: the build raises for it, alone and
-    beside a second mesh. Two unclipped meshes build, through the fused
-    tables (K5)."""
+    """A mesh clipped by its root box builds, alone and beside a second
+    mesh: its table rows 9-14 hold its BVH reach boxes, the fused tables
+    flag the root filter (K4), and the scene renders. Two unclipped meshes
+    build through the fused tables (K5) with their own triangle bounds in
+    the reach rows."""
     sd, mesh = _hand_built_defs(t_parser, TSettings(width=8, height=8))
     mesh.mesh = t_procedural_mesh(100, pos=(0.8, 0.1, -3), size=(1, 1, 1))
     second = dataclasses.replace(mesh, pos=(-0.8, 0.1, -3))
@@ -248,13 +258,18 @@ def test_multi_mesh_and_clipped_mesh_raise():
     sd.objects.append(second)
     two = t_build_scene(sd, device="cpu")
     assert two.fused_itables.n_meshes == 2
+    assert not two.fused_itables.any_clipped
     m = mesh.mesh
     m.root_bounds = m.root_bounds * 0.5  # the mesh now pokes outside
-    with pytest.raises(NotImplementedError, match="root"):
-        t_build_scene(sd, device="cpu")
+    two = t_build_scene(sd, device="cpu")
+    assert two.static.meshes[0].clipped_by_root
+    assert two.fused_itables.any_clipped
+    assert torch.isfinite(render_scene(two)[0]).all()
     sd.objects.pop()
-    with pytest.raises(NotImplementedError, match="root"):
-        t_build_scene(sd, device="cpu")
+    one = t_build_scene(sd, device="cpu")
+    assert one.static.meshes[0].clipped_by_root
+    assert one.meshes[0].itables.tri[:, 9:15].abs().sum() > 0
+    assert torch.isfinite(render_scene(one)[0]).all()
 
 
 def test_default_device_without_gpu_raises():

@@ -123,12 +123,16 @@ def forward_frame() -> None:
         (it, "trace_occlusion", "trace_occlusion (incl. its pre-pass + kernel)"),
         (it, "surface_data", "surface_data"),
         (it, "point_shadow_batch", "shadow-ray build"),
-        (ci, "closest_hit_kernel", "closest-hit kernel"),
-        (ci, "any_hit_kernel", "any-hit kernel"),
     ]
+    # The kernels, looked up by variant name at every query.
+    kernels = [("closest_hit", "closest-hit kernel"),
+               ("any_hit", "any-hit kernel")]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    saved_k = {n: ci.KERNELS[n] for n, _ in kernels}
     for m, n, label in patches:
         setattr(m, n, timed(phases, label, getattr(m, n)))
+    for n, label in kernels:
+        ci.KERNELS[n] = timed(phases, label, ci.KERNELS[n])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -137,6 +141,7 @@ def forward_frame() -> None:
     total = time.perf_counter() - t0
     for m, n, fn in saved:
         setattr(m, n, fn)
+    ci.KERNELS.update(saved_k)
     print(f"synchronized frame {WIDTH}x{HEIGHT}, {N_TRIS} "
           f"triangles: {total * 1e3:.3f} ms")
     for label, s in sorted(phases.items(), key=lambda kv: -kv[1]):
