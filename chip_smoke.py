@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from rendering_tpu_torch/csrc with nvcc,
-then drives the port's two paths through the entry points a user calls.
+then drives the port's paths through the entry points a user calls.
 
 The 250k-triangle flagship scene at 3840x1080 (kernels K1 closest hit
 and K2 any hit):
@@ -65,8 +65,33 @@ variants of K1/K2/K5):
     whose own CLI runs at 1920x1080, without and with the counters, give
     the fused variants' launches and numbers.
 
-Prints the card, a JSON line of the path numbers, a JSON line of
-per-kernel numbers, and as its last line {"ok": true, "device": {...}}.
+Reflective and transparent materials, on build_tiny_scene (a plane, the
+250k procedural mesh, a glass, a mirror and a diffuse sphere; point,
+distant and 2x2 area lights; 5 bounces) at 3840x1080, and the two-phase
+shadow query (K6, two launches of the any-hit variant over super ranges
+of the tables):
+
+14. renders the frame through `render_scene`: K1 once and K2 twice per
+    ray block and bounce, rays_casted equal to the JAX package's count,
+    no path dropped; prints each bounce's time and live lanes and the
+    peak memory, and times the frame; keeps the middle block's first
+    shadow query;
+15. whole-render parity at 384x216 with SSAA and the counters on, at
+    anyhit_compact_frac 0 and 0.5, kernels vs plain versions; the two
+    fracs' frames bit-equal;
+16. holds K6 against its plain version (and the single pass) on the kept
+    query at fracs 0.25 and 0.5, with and without the counters; times
+    each phase, its plain version and bound, and single-pass K2;
+17. trains the flagship at fracs 0, 0.25 and 0.5: K6's launches, the
+    step time, loss and gradients bit-equal across the fracs;
+18. trains the bouncing scene (the point light, obj_color, the mesh
+    vertices): launches, two steps bit-equal, step time and peak memory;
+19. renders tests/scenes/t01_simple_shapes.scene through `cli.main` and
+    holds the BMP to tests/test_golden.py's t01 limits.
+
+Each phase prints its duration. Prints the card, a JSON line of the path
+numbers, a JSON line of per-kernel numbers, and as its last line
+{"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero; without a CUDA
 device it exits 1 and prints no result.
 """
@@ -120,6 +145,16 @@ TPU_KERNEL = "rendering_tpu/ops/pallas_intersect.py:135"
 TPU_FUSED = "rendering_tpu/ops/pallas_intersect.py:1154"
 TPU_ROOT_FILTER = "rendering_tpu/ops/pallas_intersect.py:328"
 TPU_STATS = "rendering_tpu/ops/pallas_intersect.py:177"
+TPU_TWO_PHASE = "rendering_tpu/ops/pallas_intersect.py:954"
+# The bouncing workload: build_tiny_scene's four materials and three
+# lights with the 250k procedural mesh, at the flagship's resolution.
+TINY_PATHS = (("lights", 0, "intensity"), ("obj_color",), ("meshes", 0, "v"))
+FRACS = (0.25, 0.5)     # settings.anyhit_compact_frac of K6's runs
+# tests/test_golden.py's t01_simple_shapes limits (SCENE_TOL, SCENE_MAD):
+# interior u8 fractions off by > 1 and > 8, neighbourhood violations,
+# and the mean |diff|. Copied: that file imports the JAX package.
+T01_TOL = (0.00045, 0.00040, 0.00005, 0.048)
+TESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
 # The scene-file path: t10_shotgun.scene's options, lights and object with
 # the 250k procedural mesh as its OBJ (tests/scenes/t10_shotgun.scene).
 SCENE_W, SCENE_H = 3840, 1080
@@ -203,10 +238,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 def flags(ci, name) -> dict:
     """The query flags of kernel variant `name` (ops/cuda_intersect.py
-    KERNELS): anyhit, root_filter, collect_stats."""
+    KERNELS): anyhit, root_filter, collect_stats, and two_phase for a
+    phase of K6."""
     k = ci.KERNELS[name]
-    return dict(anyhit=k.anyhit, root_filter=k.root_filter,
-                collect_stats=k.collect_stats)
+    kw = dict(anyhit=k.anyhit, root_filter=k.root_filter,
+              collect_stats=k.collect_stats)
+    return {**kw, "two_phase": True} if k.two_phase else kw
 
 
 def launch(ci, tables, prep, bfc, **kw):
@@ -217,8 +254,9 @@ def launch(ci, tables, prep, bfc, **kw):
     return run(tables, prep, backface_culling=bfc, **kw)
 
 
-def plain(ci, tables, prep, bfc, stats=None, **kw):
-    """The same query through the kernel's plain PyTorch version."""
+def plain(ci, tables, prep, bfc, stats=None, two_phase=False, **kw):
+    """The same query through the kernel's plain PyTorch version (a
+    phase of K6 is the plain any hit over its super range)."""
     fn = (ci.intersect_fused_plain if isinstance(tables, ci.FusedTables)
           else ci.intersect_plain)
     return fn(tables, prep, backface_culling=bfc, stats=stats, **kw)
@@ -404,6 +442,7 @@ def whole_render_parity(ci, build, what):
           f"{counts_p}")
     if n_diff or counts_k != counts_p:
         raise AssertionError(f"{what}: kernel and plain renders disagree")
+    return u8_k, counts_k
 
 
 def train(ci, scene, paths, *, reps: int, zero_ok=()):
@@ -489,6 +528,148 @@ def recorded(module, attr: str, calls: list):
         yield
     finally:
         setattr(module, attr, real)
+
+
+class Laps:
+    """Prints the duration of each phase as it ends (host clock,
+    synchronized)."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps: dict = {}
+
+    def __call__(self, name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.laps[name] = now - self.t
+        print(f"phase {name}: {now - self.t:.1f} s", flush=True)
+        self.t = now
+
+
+@contextlib.contextmanager
+def kept_call(module, attr: str, index: int, out: dict):
+    """Wrap module.attr so that its call number `index` (from 0) leaves
+    its arguments in out["args"] and out["kwargs"]."""
+    real = getattr(module, attr)
+    seen = [0]
+
+    def wrapper(*args, **kwargs):
+        if seen[0] == index:
+            out.update(args=args, kwargs=kwargs)
+        seen[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(module, attr, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+@contextlib.contextmanager
+def timed_bounces(it, out: list):
+    """Wrap the integrator's `_bounce` (one castRay level of the whole
+    queue): each call appends its host seconds (synchronized) and the
+    queue's live and total lanes to out."""
+    real = it._bounce
+
+    def wrapper(scene, queue, *args, **kwargs):
+        torch.cuda.synchronize()
+        live = int((queue.weight > scene.static.settings.min_weight).sum())
+        t0 = time.perf_counter()
+        result = real(scene, queue, *args, **kwargs)
+        torch.cuda.synchronize()
+        out.append({"s": time.perf_counter() - t0, "live": live,
+                    "lanes": queue.weight.numel()})
+        return result
+
+    it._bounce = wrapper
+    try:
+        yield
+    finally:
+        it._bounce = real
+
+
+def expected_rays(scene, lanes: int) -> int:
+    """rays_casted of a bouncing render by the JAX package's count: every
+    bounce traces all `lanes` queue lanes, then for each lane one shadow
+    ray per point or distant light and samples^2 per area light."""
+    st = scene.static
+    shadow = sum(1 if kind in ("point", "distant") else n * n
+                 for kind, n in zip(st.light_kinds, st.light_samples))
+    return (st.settings.max_ray_depth + 1) * lanes * (1 + shadow)
+
+
+def with_settings(scene, **kw):
+    """The scene with its settings changed (same tensors)."""
+    return dataclasses.replace(scene, static=dataclasses.replace(
+        scene.static, settings=scene.static.settings.replace(**kw)))
+
+
+def two_phase_numbers(ci, tb, ro3, rd3, t_limit, frac: float, bfc) -> dict:
+    """K6 on one shadow query, phase by phase: each phase's kernel time,
+    plain time and bound (`kernel_numbers`, over its super range and its
+    own pre-pass), the split, how many rays the first phase resolved, and
+    the whole call (both pre-passes, the packing, both launches) by CUDA
+    events."""
+    name = "any_hit_two_phase"
+    cs = tb.sbox.shape[0]
+    k = ci.two_phase_split(cs, frac)
+    part1 = ci.slice_supers(tb, 0, k)
+    prep1 = ci.prepare(part1, ro3, rd3, t_limit)
+    phase1 = kernel_numbers(ci, name, part1, prep1, bfc)
+    _, tri1 = launch(ci, part1, prep1, bfc, **flags(ci, name))
+    occ1 = tri1[:ro3.shape[1]] >= 0
+    _, ro_p, rd_p, tl_p = ci.two_phase_pack(occ1, ro3, rd3, t_limit)
+    part2 = ci.slice_supers(tb, k, cs)
+    phase2 = kernel_numbers(ci, name, part2,
+                            ci.prepare(part2, ro_p, rd_p, tl_p), bfc)
+    call_ms = cuda_ms(lambda: ci.any_hit_two_phase(
+        tb, ro3, rd3, t_limit, frac=frac, backface_culling=bfc), reps=5)
+    phases = (phase1, phase2)
+    return {
+        "frac": frac, "supers": cs, "split": k,
+        "resolved_in_phase1": int(occ1.sum()), "phases": phases,
+        "ms": sum(p["ms"] for p in phases),
+        "plain_ms": sum(p["plain_ms"] for p in phases),
+        "bound_ms": sum(p["bound_ms"] for p in phases),
+        "bound_by": ("operations" if all(p["bound_by"] == "operations"
+                                         for p in phases) else "bytes"),
+        "call_ms": call_ms,
+    }
+
+
+def train_target(scene):
+    """The seeded random target frame of a train step on `scene`."""
+    st = scene.static.settings
+    gen = torch.Generator(device=scene.device).manual_seed(0)
+    return torch.rand((3, st.height, st.width), generator=gen,
+                      device=scene.device)
+
+
+def _pool3(img, op):
+    """3x3 max/min pooling by shifted stacking (tests/test_golden.py)."""
+    import numpy as np
+
+    h, w = img.shape[:2]
+    padded = np.pad(img, ((1, 1), (1, 1), (0, 0)), mode="edge")
+    return op(np.stack([padded[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+                        for dy in (-1, 0, 1) for dx in (-1, 0, 1)]), axis=0)
+
+
+def golden_measures(ours, gold):
+    """tests/test_golden.py's measures of a u8 frame against its golden,
+    the 1-pixel border left out: the fractions of values off by > 1 and
+    by > 8, of pixels outside the golden's 3x3 neighbourhood +- 2, and
+    the mean |diff|."""
+    import numpy as np
+
+    g = gold.astype(np.int16)
+    o = ours.astype(np.int16)
+    ok = (o <= _pool3(g, np.max) + 2) & (o >= _pool3(g, np.min) - 2)
+    inner = np.abs(o - g)[1:-1, 1:-1]
+    return (float((inner > 1).mean()), float((inner > 8).mean()),
+            float((~ok.all(axis=2))[1:-1, 1:-1].mean()), float(inner.mean()))
 
 
 def write_scene(path, obj, *, w, h, stats, name, second_obj=None):
@@ -581,6 +762,11 @@ def cli_path(ci, scene_path, what, kept: dict, block: int) -> dict:
     return out
 
 
+def path_numbers(run):
+    """A CLI run's numbers without its scene objects."""
+    return {k: v for k, v in run.items() if k not in ("scene", "scene_def")}
+
+
 def scene_at(scene_def, w, h):
     """The scene of a recorded SceneDef, rebuilt at w x h on the card."""
     from rendering_tpu_torch.models.scene import build_scene
@@ -593,7 +779,10 @@ def scene_at(scene_def, w, h):
 
 def replaces(name: str) -> str:
     """The TPU kernel (file:line) that variant `name` replaces: the
-    counters (K3), the root filter (K4), K5 or K1/K2."""
+    two-phase any hit (K6), the counters (K3), the root filter (K4), K5
+    or K1/K2."""
+    if "two_phase" in name:
+        return TPU_TWO_PHASE
     if "stats" in name:
         return TPU_STATS
     if "rootfilter" in name:
@@ -608,6 +797,7 @@ def main() -> int:
     from rendering_tpu_torch.flagship import (
         build_flagship_scene,
         build_multimesh_scene,
+        build_tiny_scene,
     )
     from rendering_tpu_torch.ops import cuda_intersect as ci
     from rendering_tpu_torch.render.pipeline import render_scene
@@ -617,6 +807,7 @@ def main() -> int:
     card_line = card()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(card_line)
+    lap = Laps()
 
     # ---- build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -635,6 +826,8 @@ def main() -> int:
           f"n_sub={tb.n_sub} Cs={tb.sbox.shape[0]}")
     bfc = scene.static.settings.use_backface_culling
     n_blocks = -(-WIDTH * HEIGHT // RAY_BLOCK)
+
+    lap("build")
 
     # ---- 1. flagship forward render through render_scene -------------------
     kept: dict = {}
@@ -656,6 +849,8 @@ def main() -> int:
           f"{frame_ms:.3f} ms, {rays / frame_ms * 1e3:.4e} rays/s "
           f"(CUDA events, mean of 3 after 1 warm-up) on {card_line}")
 
+    lap("1 flagship forward")
+
     # ---- 2-3. K1, K2 vs plain, and their numbers, on the kept queries ------
     err, nums = {}, {}
     for name in ("closest_hit", "any_hit"):
@@ -665,9 +860,13 @@ def main() -> int:
         print(f"{name}: {json.dumps(nums[name])}")
     kept.clear()
 
+    lap("2-3 K1/K2 vs plain")
+
     # ---- 4. flagship whole-render parity ------------------------------------
     whole_render_parity(
         ci, lambda w, h: build_flagship_scene(w, h, n_tris=N_TRIS), "flagship")
+
+    lap("4 flagship parity")
 
     # ---- 5. flagship fwd+bwd train step --------------------------------------
     flag = train(ci, scene, BENCH_PATHS, reps=3,
@@ -680,6 +879,8 @@ def main() -> int:
           f"{flag['peak_bytes'] / 2**30:.3f} GiB on {card_line}")
     del scene, frame3
     torch.cuda.empty_cache()
+
+    lap("5 flagship train step")
 
     # ---- 6. 16-mesh forward render (K5) --------------------------------------
     t0 = time.perf_counter()
@@ -708,6 +909,8 @@ def main() -> int:
     mm_frame_ms = cuda_ms(mm_forward, reps=3)
     print(f"multimesh forward frame: {mm_frame_ms:.3f} ms on {card_line}")
 
+    lap("6 multimesh forward")
+
     # ---- 7. K5 vs plain, and its numbers, on the kept queries -----------------
     for name in ("fused_closest_hit", "fused_any_hit"):
         err[name] = check_parity(ci, name, *kept[ci.KERNELS[name].anyhit], bfc)
@@ -716,11 +919,15 @@ def main() -> int:
         print(f"{name}: {json.dumps(nums[name])}")
     kept.clear()
 
+    lap("7 K5 vs plain")
+
     # ---- 8. multimesh whole-render parity ------------------------------------
     whole_render_parity(
         ci, lambda w, h: build_multimesh_scene(
             w, h, n_meshes=MM_MESHES, tris_per_mesh=MM_TRIS_PER_MESH),
         "multimesh")
+
+    lap("8 multimesh parity")
 
     # ---- 9. multimesh fwd+bwd train step ------------------------------------
     mmt = train(ci, mm, MM_PATHS, reps=3)
@@ -733,6 +940,8 @@ def main() -> int:
 
     del mm, mm_frame
     torch.cuda.empty_cache()
+
+    lap("9 multimesh train step")
 
     # ---- 10. the scene file through the CLI (K4) -----------------------------
     from rendering_tpu_torch.flagship import procedural_mesh
@@ -776,6 +985,8 @@ def main() -> int:
     print(f"scene-file frame {SCENE_W}x{SCENE_H} (primary + SSAA): "
           f"{sf_frame_ms:.3f} ms on {card_line}")
 
+    lap("10 scene file")
+
     # ---- 11. K4 vs plain, and its numbers, on the kept queries ---------------
     for name in ("closest_hit_rootfilter", "any_hit_rootfilter"):
         err[name] = check_parity(ci, name, *kept[ci.KERNELS[name].anyhit], bfc)
@@ -783,6 +994,8 @@ def main() -> int:
                                     bfc)
         print(f"{name}: {json.dumps(nums[name])}")
     kept.clear()
+
+    lap("11 K4 vs plain")
 
     # ---- 12. collectStatistics=1 through the CLI (K3 with K4) ----------------
     sfs = cli_path(ci, scene_paths[True], "scene file, collectStatistics=1",
@@ -796,6 +1009,8 @@ def main() -> int:
     sfs_frame_ms = cuda_ms(lambda: sf_forward(sfs["scene"]), reps=2)
     print(f"counting frame {SCENE_W}x{SCENE_H}: {sfs_frame_ms:.3f} ms vs "
           f"{sf_frame_ms:.3f} ms without the counters on {card_line}")
+
+    lap("12 collectStatistics=1")
 
     # ---- 13. whole-render parity; the two-OBJ scene file (K5 + K4 + K3) -------
     whole_render_parity(ci, lambda w, h: scene_at(sfs["scene_def"], w, h),
@@ -819,11 +1034,200 @@ def main() -> int:
         kept.clear()
     whole_render_parity(ci, lambda w, h: scene_at(two[True]["scene_def"], w, h),
                         "two-OBJ scene file, SSAA, collectStatistics=1")
+    two_nums = {k: path_numbers(v) for k, v in two.items()}
+
+    lap("13 parity, two-OBJ scene file")
+    del two
+    torch.cuda.empty_cache()
+
+    # ---- 14. the bouncing frame: all four materials (K1, K2) ---------------
+    from rendering_tpu_torch.render import integrator as it
+
+    t0 = time.perf_counter()
+    tiny = build_tiny_scene(WIDTH, HEIGHT, n_tris=N_TRIS)
+    torch.cuda.synchronize()
+    tiny_build_s = time.perf_counter() - t0
+    bfc = tiny.static.settings.use_backface_culling
+    n_bounces = tiny.static.settings.max_ray_depth + 1
+    lanes = n_blocks * min(RAY_BLOCK, WIDTH * HEIGHT)
+    shadow_call: dict = {}
+    bounces: list = []
+    b_counts: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), counted(ci, b_counts), \
+            kept_call(ci, "any_hit", 2 * (n_blocks // 2), shadow_call), \
+            timed_bounces(it, bounces):
+        b_frame, b_aux = render_scene(tiny)
+    b_peak = torch.cuda.max_memory_allocated()
+    check_launches(b_counts, {"closest_hit": n_blocks * n_bounces,
+                              "any_hit": 2 * n_blocks * n_bounces},
+                   f"bouncing render_scene ({n_bounces} bounces of "
+                   f"{n_blocks} ray blocks)")
+    check_frame(tiny, b_frame, WIDTH, HEIGHT, "bouncing")
+    b_stats = {k: int(v) for k, v in b_aux["stats"].items()}
+    want_rays = expected_rays(tiny, lanes)
+    print(f"bouncing frame: scene built in {tiny_build_s:.1f} s; stats "
+          f"{b_stats}; rays_casted by the JAX formula {want_rays} "
+          f"({n_bounces} bounces x {lanes} lanes x (1 + shadow rays)); "
+          f"peak {b_peak / 2**30:.3f} GiB; bounces (synchronized) "
+          f"{bounces}")
+    if b_stats["rays_casted"] != want_rays or b_stats["paths_dropped"]:
+        raise AssertionError("bouncing frame: rays_casted or paths_dropped")
+
+    def tiny_forward():
+        with torch.no_grad():
+            render_scene(tiny)
+
+    b_frame_ms = cuda_ms(tiny_forward, reps=2)
+    print(f"bouncing frame {WIDTH}x{HEIGHT}, {N_TRIS} triangles: "
+          f"{b_frame_ms:.3f} ms (CUDA events, mean of 2 after 1 warm-up) on "
+          f"{card_line}")
+    del b_frame
+    lap("14 bouncing frame")
+
+    # ---- 15. bouncing whole-render parity, single pass and K6 ---------------
+    b_parity = {}
+    for frac in (0.0, FRACS[-1]):
+        b_parity[frac], _ = whole_render_parity(
+            ci, lambda w, h, f=frac: build_tiny_scene(
+                w, h, n_tris=N_TRIS, settings_overrides=dict(
+                    enable_ssaa=True, collect_statistics=True,
+                    anyhit_compact_frac=f)),
+            f"bouncing, SSAA, collectStatistics=1, anyhit_compact_frac={frac}")
+    frac_equal = torch.equal(b_parity[0.0], b_parity[FRACS[-1]])
+    print(f"bouncing frame at anyhit_compact_frac={FRACS[-1]} bit-equal to "
+          f"the single-pass frame: {frac_equal}")
+    if not frac_equal:
+        raise AssertionError("the two-phase render differs from the "
+                             "single-pass render")
+    lap("15 bouncing parity")
+
+    # ---- 16. K6 vs plain, and its numbers, on the kept shadow query ---------
+    tb, ro3, rd3, t_lim = shadow_call["args"]
+    k6_err = 0.0
+    for collect in (False, True):
+        for frac in FRACS:
+            kw = dict(frac=frac, backface_culling=bfc, collect_stats=collect)
+            out_k = ci.any_hit_two_phase(tb, ro3, rd3, t_lim, **kw)
+            with plain_queries(ci):
+                out_p = ci.any_hit_two_phase(tb, ro3, rd3, t_lim, **kw)
+            out_k = out_k if collect else (out_k,)
+            out_p = out_p if collect else (out_p,)
+            single = ci.any_hit(tb, ro3, rd3, t_lim, backface_culling=bfc)
+            mis = int((out_k[0] != out_p[0]).sum())
+            k6_err = max(k6_err, float((out_k[0].float()
+                                        - out_p[0].float()).abs().max()))
+            mis_single = int((out_k[0] != single).sum())
+            counters = ([int(x) for x in out_k[1:]], [int(x) for x in out_p[1:]])
+            print(f"parity any_hit_two_phase frac={frac} stats={collect}: "
+                  f"{ro3.shape[1]} rays, {int(out_k[0].sum())} occluded; "
+                  f"mismatches vs plain {mis}, vs single pass {mis_single}; "
+                  f"counters kernel {counters[0]} plain {counters[1]}")
+            if mis or mis_single or counters[0] != counters[1]:
+                raise AssertionError("K6 disagrees with its plain version")
+    k6 = {frac: two_phase_numbers(ci, tb, ro3, rd3, t_lim, frac, bfc)
+          for frac in FRACS}
+    for frac, n in k6.items():
+        print(f"any_hit_two_phase frac={frac}: {json.dumps(n)}")
+    k2_same = kernel_numbers(ci, "any_hit", tb,
+                             ci.prepare(tb, ro3, rd3, t_lim), bfc)
+    k2_same["call_ms"] = cuda_ms(lambda: ci.any_hit(
+        tb, ro3, rd3, t_lim, backface_culling=bfc), reps=5)
+    print(f"any_hit (single pass) on the same query: {json.dumps(k2_same)}")
+    nums["any_hit_two_phase"] = k6[FRACS[-1]]
+    err["any_hit_two_phase"] = k6_err
+    del shadow_call, tb, ro3, rd3, t_lim
+    lap("16 K6 vs plain")
+
+    # ---- 17. flagship fwd+bwd step at anyhit_compact_frac 0, 0.25, 0.5 ------
+    from rendering_tpu_torch.diff.inverse import (
+        extract_params,
+        make_train_step,
+    )
+
+    flagship = build_flagship_scene(WIDTH, HEIGHT, n_tris=N_TRIS)
+    target = train_target(flagship)
+    frac_steps = {}
+    first = None
+    for frac in (0.0, *FRACS):
+        sc = with_settings(flagship, anyhit_compact_frac=frac)
+        init, step_fn = make_train_step(BENCH_PATHS)
+        counts: dict = {}
+        with counted(ci, counts):
+            params = extract_params(sc, BENCH_PATHS)
+            params, _, loss = step_fn(params, init(params), sc, target)
+        out = [loss] + [v.grad.clone() for v in params.values()]
+        check_launches(counts, {"closest_hit": n_blocks,
+                                ("any_hit_two_phase" if frac else "any_hit"):
+                                n_blocks * (2 if frac else 1)},
+                       f"flagship train step, anyhit_compact_frac={frac}")
+        if first is None:
+            first = out
+        elif not all(torch.equal(a, b) for a, b in zip(first, out)):
+            raise AssertionError(f"the step at anyhit_compact_frac={frac} "
+                                 f"differs from the single-pass step")
+        params = extract_params(sc, BENCH_PATHS)
+        state = init(params)
+        step_fn(params, state, sc, target)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step_fn(params, state, sc, target)
+        torch.cuda.synchronize()
+        frac_steps[frac] = {"step_ms": (time.perf_counter() - t0) / 2 * 1e3,
+                            "launches": {k: n for k, n in counts.items() if n}}
+        print(f"flagship fwd+bwd step at anyhit_compact_frac={frac}: "
+              f"{frac_steps[frac]['step_ms']:.3f} ms (mean of 2 after 1 "
+              f"warm-up); loss and gradients bit-equal to frac 0 on "
+              f"{card_line}")
+    k6_launches = frac_steps[FRACS[-1]]["launches"]["any_hit_two_phase"]
+    del flagship, sc, params, state, first, out
+    torch.cuda.empty_cache()
+    lap("17 flagship step at each frac")
+
+    # ---- 18. the bouncing train step ------------------------------------------
+    b_train = train(ci, tiny, TINY_PATHS, reps=1)
+    check_launches(b_train["launches"],
+                   {"closest_hit": n_blocks * n_bounces,
+                    "any_hit": 2 * n_blocks * n_bounces},
+                   "bouncing train step")
+    print(f"bouncing fwd+bwd step {WIDTH}x{HEIGHT}: "
+          f"{b_train['step_ms']:.3f} ms; peak "
+          f"{b_train['peak_bytes'] / 2**30:.3f} GiB on {card_line}")
+    del tiny
+    torch.cuda.empty_cache()
+    lap("18 bouncing train step")
+
+    # ---- 19. t01_simple_shapes.scene through cli.main, against its golden ---
+    import numpy as np
+
+    from rendering_tpu_torch import cli
+    from rendering_tpu_torch.render import pipeline
+    from rendering_tpu_torch.utils.bmp import bmp_to_image, load_bmp
+
+    t01_bmp = os.path.join(WORKSPACE, "t01.bmp")
+    t01_renders: list = []
+    with recorded(pipeline, "render_scene", t01_renders):
+        cli.main([os.path.join(TESTS, "scenes", "t01_simple_shapes.scene"),
+                  "--output", t01_bmp])
+    t01_dropped = [int(c["result"][1]["stats"]["paths_dropped"])
+                   for c in t01_renders]
+    t01 = golden_measures(
+        bmp_to_image(load_bmp(t01_bmp)),
+        bmp_to_image(load_bmp(os.path.join(TESTS, "goldens",
+                                           "t01_simple_shapes.bmp"))))
+    print(f"t01_simple_shapes through cli.main: measures {t01} (limits "
+          f"{T01_TOL}); paths_dropped per render {t01_dropped}; render "
+          f"{[c['s'] for c in t01_renders]} s")
+    if any(m > t for m, t in zip(t01, T01_TOL)) or any(t01_dropped):
+        raise AssertionError("t01 is outside its golden tolerance")
+    lap("19 t01 cli")
 
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
-        k: mmt["launches"][k] for k in ("fused_closest_hit", "fused_any_hit")}}
-    for run in (sf, sfs, two[False], two[True]):
+        k: mmt["launches"][k] for k in ("fused_closest_hit", "fused_any_hit")},
+        "any_hit_two_phase": k6_launches}
+    for run in (sf, sfs, two_nums[False], two_nums[True]):
         launches.update(run["launches"])
     rows = []
     for name, n in nums.items():
@@ -836,9 +1240,6 @@ def main() -> int:
             "library_ms": None,
         })
 
-    def path_numbers(run):
-        return {k: v for k, v in run.items() if k not in ("scene", "scene_def")}
-
     print(json.dumps({
         "card": card_line,
         "flagship": {"frame_ms": frame_ms,
@@ -848,8 +1249,14 @@ def main() -> int:
         "scene_file": {"obj_write_s": write_s, "frame_ms": sf_frame_ms,
                        "stats_frame_ms": sfs_frame_ms,
                        "cli": path_numbers(sf), "cli_stats": path_numbers(sfs),
-                       "two_obj": path_numbers(two[False]),
-                       "two_obj_stats": path_numbers(two[True])},
+                       "two_obj": two_nums[False],
+                       "two_obj_stats": two_nums[True]},
+        "bouncing": {"frame_ms": b_frame_ms, "stats": b_stats,
+                     "peak_bytes": b_peak, "bounces": bounces,
+                     "fwd_bwd": b_train, "k6": k6, "k2_same_query": k2_same,
+                     "flagship_steps_by_frac": frac_steps,
+                     "t01": {"measures": t01, "dropped": t01_dropped}},
+        "phase_s": lap.laps,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Benchmark scenes — `rendering_tpu.flagship.build_flagship_scene` and
-`build_multimesh_scene` for the port.
+"""Benchmark scenes — `rendering_tpu.flagship.build_flagship_scene`,
+`build_tiny_scene` and `build_multimesh_scene` for the port.
 
 The flagship workload is shotgun.scene: a 3840x1080 phong mesh with
 diffuse, normal and specular maps, one point and one distant light. The
@@ -146,6 +146,50 @@ def build_flagship_scene(
             obj.normal_map, obj.normal_map_wh = maps["normal"]
             obj.specular_map, obj.specular_map_wh = maps["specular"]
     sd.objects = [obj]
+    return build_scene(sd, device=device)
+
+
+def build_tiny_scene(width: int = 64, height: int = 32, n_tris: int = 128,
+                     settings_overrides: dict | None = None,
+                     device=None) -> SceneData:
+    """The JAX package's tiny multi-material scene: a plane, a phong
+    procedural mesh of n_tris triangles, and a transparent, a reflective
+    and a diffuse sphere (all four materials); a point, a distant and an
+    area light (2x2 samples); max_ray_depth 4. Runs on the CUDA device
+    unless `device` says otherwise."""
+    st = RenderSettings(
+        width=width, height=height, max_ray_depth=4, enable_ssaa=False,
+        enable_output=False, output_progress=False,
+        background_color=(0.2, 0.25, 0.3),
+    )
+    if settings_overrides:
+        st = st.replace(**settings_overrides)
+    sd = SceneDef(settings=st)
+    sd.lights = [
+        LightDef("point", color=(1, 0.9, 0.8), intensity=0.7, pos=(0, 2, -1)),
+        LightDef("distant", color=(1, 1, 1), intensity=0.3,
+                 dir=(0.2, -1, -0.4)),
+        LightDef("area", color=(1, 1, 1), intensity=40.0, pos=(0, 3, -3),
+                 i=(1.5, 0, 0), j=(0, 0, 1.5), samples=2),
+    ]
+    mesh_obj = ObjectDef(
+        "mesh", pos=(0.8, 0.1, -3), size=(1.4, 1.4, 1.4), color=(1, 1, 1),
+        material="phong", ambient=0.4, diffuse=0.1, specular=0.7,
+        n_specular=10.0,
+    )
+    mesh_obj.mesh = procedural_mesh(n_tris, pos=(0.8, 0.1, -3),
+                                    size=(1.4, 1.4, 1.4))
+    sd.objects = [
+        ObjectDef("plane", pos=(0, -1.5, 0), normal=(0, 1, 0),
+                  color=(0.85, 0.85, 0.85)),
+        mesh_obj,
+        ObjectDef("sphere", pos=(-1.0, 0, -2.5), radius=0.6, color=(1, 1, 1),
+                  material="transparent", ior=1.4),
+        ObjectDef("sphere", pos=(-0.2, 0.8, -4), radius=0.8, color=(1, 1, 1),
+                  material="reflective"),
+        ObjectDef("sphere", pos=(1.8, -0.6, -2.2), radius=0.4,
+                  color=(0.9, 0.3, 0.2)),
+    ]
     return build_scene(sd, device=device)
 
 

@@ -2,7 +2,8 @@
 the port reads, and the scene-file key map.
 
 TPU-only knobs (pallas_interpret, use_mxu_intersect, geo_shard_axis,
-anyhit_*, bruteforce_threshold, tri_chunk) have no counterpart here.
+anyhit_tri_chunk, anyhit_n_sub, bruteforce_threshold, tri_chunk) have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -47,6 +48,11 @@ class RenderSettings:
     # pixel count; a larger Sobel mask re-renders at a raised capacity
     # (render.pipeline.escalating_render).
     ssaa_capacity_fraction: float = 0.25
+    # Two-phase shadow query of a single mesh (the any-hit K6,
+    # ops/cuda_intersect.any_hit_two_phase): the first round(frac * Cs)
+    # super chunks, then the unresolved rays packed densely against the
+    # rest. 0.0 = the single-pass any hit (K2).
+    anyhit_compact_frac: float = 0.0
     # "nearest" (the reference's truncating texel index) or "bilinear".
     texture_filter: str = "nearest"
 

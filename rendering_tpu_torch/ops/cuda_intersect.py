@@ -1,6 +1,6 @@
 """Ray-mesh intersection: the hand-written CUDA closest-hit and any-hit
 kernels, their plain PyTorch versions, the chunk tables and the
-per-tile pre-pass.
+per-tile pre-pass, and the two-phase shadow query (K6).
 
 The kernels (csrc/mesh_intersect.cu) replace the Pallas TPU kernel
 `rendering_tpu/ops/pallas_intersect.py::_kernel` in its two modes:
@@ -14,7 +14,10 @@ the triangle's BVH reach box (table rows 9-14; it replicates the
 reference's clipping of a rotated mesh by its root box), and the test
 counters (K3, `collect_stats`), [tri_tests, box_tests] with the Pallas
 kernel's semantics. Every combination is its own launcher with its own
-launch count (`KERNELS`).
+launch count (`KERNELS`). K6 (`any_hit_two_phase`, the JAX package's
+`anyhit_two_phase`) is the any hit launched twice, over two super ranges
+of one mesh's tables, with the rays it resolved in the first launch
+packed behind the others for the second; its launches count apart.
 They are bound by f32 operations (57 instructions per ray-triangle pair,
 each issued alone under -fmad=false; the tables are only ~16 MB at 250k
 triangles), so the design keeps triangle rows in shared memory for a
@@ -555,6 +558,7 @@ class CudaKernel:
     fused: bool
     root_filter: bool
     collect_stats: bool
+    two_phase: bool = False
     launches: int = 0
 
     def __call__(self, tb: IntersectTables, prep: Prepared, *,
@@ -620,22 +624,28 @@ class CudaKernel:
 
 
 def variant_name(*, anyhit: bool, fused: bool, root_filter: bool,
-                 collect_stats: bool) -> str:
+                 collect_stats: bool, two_phase: bool = False) -> str:
     """A variant's name: closest_hit / any_hit, "fused_" before it,
-    "_rootfilter" and "_stats" after it."""
+    "_two_phase" (K6), "_rootfilter" and "_stats" after it."""
     return (("fused_" if fused else "") + ("any_hit" if anyhit else
                                            "closest_hit")
+            + ("_two_phase" if two_phase else "")
             + ("_rootfilter" if root_filter else "")
             + ("_stats" if collect_stats else ""))
 
 
+_FLAGS = ("anyhit", "fused", "root_filter", "collect_stats")
 # Every variant, by name. The fused any hit is the any-hit walk over the
-# fused tables, counted apart from the single-mesh one.
+# fused tables, counted apart from the single-mesh one; so are the two
+# launches of each two-phase shadow query (K6, `any_hit_two_phase`),
+# which run the single-mesh any hit over super ranges of the tables.
 KERNELS = {
     variant_name(**kw): CudaKernel(variant_name(**kw), **kw)
-    for kw in (dict(zip(("anyhit", "fused", "root_filter", "collect_stats"),
-                        flags))
-               for flags in itertools.product((False, True), repeat=4))
+    for kw in [dict(zip(_FLAGS, flags))
+               for flags in itertools.product((False, True), repeat=4)]
+    + [dict(anyhit=True, fused=False, root_filter=rf, collect_stats=cs,
+            two_phase=True)
+       for rf, cs in itertools.product((False, True), repeat=2)]
 }
 closest_hit_kernel = KERNELS["closest_hit"]
 any_hit_kernel = KERNELS["any_hit"]
@@ -650,13 +660,15 @@ def _check_device(prep: Prepared) -> None:
 
 def run_query(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
               backface_culling: bool, root_filter: bool = False,
-              collect_stats: bool = False):
+              collect_stats: bool = False, two_phase: bool = False):
     """The kernel variant for CUDA tensors, its plain version for CPU
-    tensors."""
+    tensors. `two_phase` marks a phase of K6 (the same kernel, counted
+    apart)."""
     if prep.aux.is_cuda:
         kernel = KERNELS[variant_name(anyhit=anyhit, fused=False,
                                       root_filter=root_filter,
-                                      collect_stats=collect_stats)]
+                                      collect_stats=collect_stats,
+                                      two_phase=two_phase)]
         return kernel(tb, prep, backface_culling=backface_culling)
     _check_device(prep)
     return intersect_plain(tb, prep, anyhit=anyhit,
@@ -697,6 +709,92 @@ def any_hit(tb: IntersectTables, ro3, rd3, t_limit=None, *,
                                   collect_stats=collect_stats)
     occ = tri[:prep.n_rays] >= 0
     return (occ, *counters) if collect_stats else occ
+
+
+# ---- K6: the two-phase shadow query of one mesh ------------------------
+
+
+def slice_supers(tb: IntersectTables, lo: int, hi: int) -> IntersectTables:
+    """The super-chunk range [lo, hi) of a table set as a table set of
+    its own (`pallas_intersect._slice_tables_supers`): contiguous dim-0
+    views of tri, cbox and sbox, which the kernel takes as they are (a
+    query over them is an any-hit query; its chunk ids are local)."""
+    n = tb.n_sub
+    return IntersectTables(tb.tri_chunk, n, tb.tri[lo:hi],
+                           tb.cbox[lo * n:hi * n], tb.sbox[lo:hi])
+
+
+def two_phase_split(cs: int, frac: float) -> int:
+    """The first phase's super count of K6 over Cs supers:
+    round(frac * Cs), kept within [1, Cs - 1] (Python's round, as the JAX
+    package's). Cs = 1 gives 1 = Cs: no second phase."""
+    return max(1, min(cs - 1, int(round(cs * frac))))
+
+
+@torch.no_grad()
+def two_phase_pack(occ1, ro3, rd3, t_limit):
+    """K6's compaction between its phases: the destination lane pos (a
+    permutation) of every ray, unresolved rays first in their order, then
+    the occluded ones, by an integer cumsum; and the rays and limits so
+    packed, the occluded ones with t_limit = -1. Returns (pos, ro3, rd3,
+    t_limit)."""
+    unres = ~occ1
+    pos = torch.where(unres, torch.cumsum(unres, 0) - 1,
+                      unres.sum() + torch.cumsum(occ1, 0) - 1)
+    ro_p = torch.zeros_like(ro3).index_copy_(1, pos, ro3)
+    rd_p = torch.zeros_like(rd3).index_copy_(1, pos, rd3)
+    tl_p = torch.zeros_like(t_limit).index_copy_(
+        0, pos, torch.where(occ1, -1.0, t_limit))
+    return pos, ro_p, rd_p, tl_p
+
+
+@torch.no_grad()
+def any_hit_two_phase(tb: IntersectTables, ro3, rd3, t_limit=None, *,
+                      frac: float, backface_culling: bool = True,
+                      root_filter: bool = False, collect_stats: bool = False):
+    """Two-phase occlusion query with mid-pass shadow-ray compaction
+    (K6, `pallas_intersect.anyhit_two_phase`, settings.anyhit_compact_frac).
+
+    Phase 1 runs the any hit (K2) over supers [0, k), k =
+    `two_phase_split(Cs, frac)`. The rays it occludes retire: a stable
+    partition by integer cumsum sends the unresolved lanes to the front
+    of the queue and the occluded ones behind them with t_limit = -1, so
+    the second pre-pass finds no live super for the trailing tiles.
+    Phase 2 runs K2 over supers [k, Cs) on the packed queue; the answer
+    is occ1 | occ2[pos] and the counters of the two phases add. Each
+    phase is one launch of the `any_hit_two_phase*` variant on CUDA
+    tensors, the plain version on CPU tensors. The permutation is plain
+    torch (deterministic: `pos` is a permutation, so index_copy writes
+    each lane once).
+
+    A table of one super has no second phase (the JAX package aborts
+    there): it runs the single-pass query, which gives the same answer,
+    as occlusion is a union over super ranges. Same returns as
+    `any_hit`."""
+    cs = tb.sbox.shape[0]
+    k = two_phase_split(cs, frac)
+    flags = dict(backface_culling=backface_culling, root_filter=root_filter,
+                 collect_stats=collect_stats)
+    if k >= cs:
+        return any_hit(tb, ro3, rd3, t_limit, **flags)
+    q = ro3.shape[1]
+    tl = (t_limit if t_limit is not None
+          else torch.full((q,), FMAX, dtype=torch.float32, device=ro3.device))
+
+    def phase(lo, hi, ro, rd, lim):
+        part = slice_supers(tb, lo, hi)
+        prep = prepare(part, ro, rd, lim)
+        _, tri, *counters = run_query(part, prep, anyhit=True,
+                                      two_phase=True, **flags)
+        return tri[:q] >= 0, counters
+
+    occ1, counters1 = phase(0, k, ro3, rd3, tl)
+    pos, ro_p, rd_p, tl_p = two_phase_pack(occ1, ro3, rd3, tl)
+    occ2, counters2 = phase(k, cs, ro_p, rd_p, tl_p)
+    occ = occ1 | occ2[pos]
+    if not collect_stats:
+        return occ
+    return (occ, *(a + b for a, b in zip(counters1, counters2)))
 
 
 # ---- K5: one query over the fused tables of every mesh -------------------

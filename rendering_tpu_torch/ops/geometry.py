@@ -1,4 +1,5 @@
-"""Small vector helpers over (3, R) row tensors and (..., 3) tensors.
+"""Small vector helpers over (3, R) row tensors and (..., 3) tensors,
+and the Morton key that orders the bounce queue.
 
 Same formulas, in the same f32 operation order, as
 `rendering_tpu.ops.geometry`: left-to-right sums, no fused
@@ -43,3 +44,37 @@ def normalize(a):
     pos = len2 > 0
     safe = torch.where(pos, len2, 1.0)
     return torch.where(pos, a * (1.0 / torch.sqrt(safe)), a)
+
+
+def clamp(low: float, high: float, val):
+    """max(low, min(high, val)), NaN-propagating, and splitting the
+    gradient at a tie as jnp.maximum/minimum do."""
+    return torch.maximum(val.new_full((), low),
+                         torch.minimum(val.new_full((), high), val))
+
+
+MORTON_INACTIVE = 0xFFFFFFFF  # the key of a lane that sorts last
+
+
+@torch.no_grad()
+def morton_key_r(p3):
+    """Per-point 30-bit Morton (Z-curve) key. p3: (3, N) -> (N,) int64
+    holding the bits of `rendering_tpu.ops.geometry.morton_key_r`'s
+    uint32 key: points quantized to a 1024^3 grid over the batch's own
+    bounds, each coordinate's 10 bits spread and interleaved. The bounce
+    loop sorts its continuation queue by it, so the intersection kernel's
+    512-ray tiles stay spatially coherent after reflection and refraction
+    scatter the rays. A discrete reordering: no gradient."""
+    lo = p3.amin(dim=1, keepdim=True)
+    span = p3.amax(dim=1, keepdim=True) - lo
+    span = torch.where(span > 0, span, 1.0)
+    q = torch.clamp((p3 - lo) / span * 1023.0, 0.0, 1023.0).to(torch.int64)
+
+    def spread(x):
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    return spread(q[0]) | (spread(q[1]) << 1) | (spread(q[2]) << 2)

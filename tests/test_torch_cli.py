@@ -1,5 +1,6 @@
 """The port's scene-file entry point on the CPU: `cli.main(..., device=
-"cpu")` on a committed golden scene, and scene files with a rotated OBJ
+"cpu")` on two committed golden scenes (t05_area; t01_simple_shapes, a
+bouncing scene), and scene files with a rotated OBJ
 (clipped by its root box, so every query runs the root filter, K4) with
 adaptive SSAA on, against the JAX package's `load_scene` + `render` with
 its Pallas kernel in interpret mode.
@@ -106,20 +107,42 @@ def _write_scene(ws, name, *, stats=0, second=False):
     return name
 
 
+def _golden_measures(name, bmp):
+    """test_golden.py's measures of a BMP against the committed golden:
+    (> 1, > 8, neighbourhood violations, mean |diff|) with their limits."""
+    ours = bmp_to_image(load_bmp(bmp))
+    gold = bmp_to_image(load_bmp(os.path.join(REPO, "tests", "goldens",
+                                              f"{name}.bmp")))
+    assert ours.shape == gold.shape
+    inner = np.abs(ours.astype(np.int16) - gold.astype(np.int16))[1:-1, 1:-1]
+    measured = ((inner > 1).mean(), (inner > 8).mean(),
+                neighborhood_violations(ours, gold)[1:-1, 1:-1].mean(),
+                inner.mean())
+    return ours.shape, measured, (*SCENE_TOL[name], SCENE_MAD[name])
+
+
 def test_cli_t05_area_matches_golden(in_workspace):
     """The port's CLI renders the committed t05_area scene (no assets,
     SSAA on) to a BMP that test_golden.py's measures accept."""
     assert cli.main(["t05_area.scene", "--output", "t05.bmp"],
                     device="cpu") == 0
-    ours = bmp_to_image(load_bmp("t05.bmp"))
-    gold = bmp_to_image(load_bmp(os.path.join(REPO, "tests", "goldens",
-                                              "t05_area.bmp")))
-    assert ours.shape == gold.shape == (150, 200, 3)
-    inner = np.abs(ours.astype(np.int16) - gold.astype(np.int16))[1:-1, 1:-1]
-    measured = ((inner > 1).mean(), (inner > 8).mean(),
-                neighborhood_violations(ours, gold)[1:-1, 1:-1].mean(),
-                inner.mean())
-    tolerance = (*SCENE_TOL["t05_area"], SCENE_MAD["t05_area"])
+    shape, measured, tolerance = _golden_measures("t05_area", "t05.bmp")
+    assert shape == (150, 200, 3)
+    assert all(m <= t for m, t in zip(measured, tolerance)), (measured,
+                                                               tolerance)
+
+
+def test_cli_t01_simple_shapes_matches_golden(in_workspace, capsys):
+    """The reference's first scene: a glass, a mirror, a phong and a
+    diffuse sphere over a plane, max_ray_depth 10, SSAA on. The port's
+    CLI renders it within test_golden.py's t01 measures, and no path is
+    dropped (no drop warning)."""
+    assert cli.main(["t01_simple_shapes.scene", "--output", "t01.bmp"],
+                    device="cpu") == 0
+    assert "dropped" not in capsys.readouterr().out
+    shape, measured, tolerance = _golden_measures("t01_simple_shapes",
+                                                  "t01.bmp")
+    assert shape == (240, 320, 3)
     assert all(m <= t for m, t in zip(measured, tolerance)), (measured,
                                                                tolerance)
 

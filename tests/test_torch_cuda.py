@@ -20,6 +20,7 @@ from rendering_tpu_torch.diff.inverse import apply_params, extract_params
 from rendering_tpu_torch.flagship import (
     build_flagship_scene,
     build_multimesh_scene,
+    build_tiny_scene,
     procedural_mesh,
 )
 from rendering_tpu_torch.ops import cuda_intersect as ci
@@ -258,4 +259,61 @@ def test_scene_file_on_card_matches_cpu(cuda, tmp_path, monkeypatch, capsys):
     assert printed[0] == printed[1] and "Ray triangle tests" in printed[0]
     d = np.abs(frames[0].astype(np.int16) - frames[1].astype(np.int16))
     d = d[1:-1, 1:-1]
+    assert (d > 1).mean() <= 0.006 and (d > 8).mean() <= 0.005
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("root_filter,collect_stats",
+                         [(False, False), (True, True)])
+@pytest.mark.parametrize("frac", [0.25, 0.5])
+def test_two_phase_kernel_matches_plain(cuda, frac, root_filter,
+                                        collect_stats):
+    """K6 (two launches of the two-phase any-hit variant, the
+    compaction between them in torch) against its plain version on the
+    CPU: occlusion equal, counters equal, and the same occlusion as the
+    single-pass query."""
+    v, reach = _clipped(20_000, pos=(-0.1, 0, -0.6))
+    tb = ci.build_intersect_tables(v, tri_chunk=64, reach=reach)
+    ro, rd, tl = _rays(8 * 512 + 77, seed=5)
+    kw = dict(frac=frac, backface_culling=True, root_filter=root_filter,
+              collect_stats=collect_stats)
+    name = ci.variant_name(anyhit=True, fused=False, root_filter=root_filter,
+                           collect_stats=collect_stats, two_phase=True)
+    before = ci.KERNELS[name].launches
+    out_k = ci.any_hit_two_phase(tb.to(cuda), *(x.to(cuda) for x in
+                                                (ro, rd, tl)), **kw)
+    out_p = ci.any_hit_two_phase(tb, ro, rd, tl, **kw)
+    torch.cuda.synchronize()
+    assert ci.KERNELS[name].launches == before + 2
+    out_k = out_k if collect_stats else (out_k,)
+    out_p = out_p if collect_stats else (out_p,)
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a.cpu(), b)
+    assert 100 < int(out_p[0].sum()) < len(out_p[0]) - 100
+    single = ci.any_hit(tb, ro, rd, tl, backface_culling=True,
+                        root_filter=root_filter)
+    assert torch.equal(out_p[0], single)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [0.0, 0.5])
+def test_bouncing_render_on_card_matches_cpu(cuda, frac):
+    """The tiny scene (all four materials, max_ray_depth 4, SSAA on) on
+    the card against the CPU: u8 frames within tests/test_golden.py's
+    DEFAULT_TOL measures, rays_casted equal, no path dropped; the shadow
+    rays of its mesh go through K6 at frac > 0."""
+    overrides = dict(enable_ssaa=True, anyhit_compact_frac=frac)
+    scene = build_tiny_scene(96, 54, n_tris=6000, device="cpu",
+                             settings_overrides=overrides)
+    cpu_u8, cpu_aux = render_scene(scene, out_u8=True)
+    for k in ci.KERNELS.values():
+        k.launches = 0
+    gpu_u8, gpu_aux = render_scene(scene.to(cuda), out_u8=True)
+    two_phase = ci.KERNELS["any_hit_two_phase"].launches
+    assert (two_phase > 0) == (frac > 0)
+    assert ci.KERNELS["closest_hit"].launches > 0
+    assert cpu_aux["stats"]["rays_casted"] == gpu_aux["stats"]["rays_casted"]
+    assert int(gpu_aux["stats"]["paths_dropped"]) == 0
+    d = np.abs(cpu_u8.numpy().astype(np.int16)
+               - gpu_u8.cpu().numpy().astype(np.int16))[1:-1, 1:-1]
     assert (d > 1).mean() <= 0.006 and (d > 8).mean() <= 0.005

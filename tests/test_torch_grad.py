@@ -7,7 +7,8 @@ tests/test_fused.py at 64x31 (the fused K5 path, both meshes' vertices;
 see torch_port_util.jax_two_mesh_scene for the odd height). The loss is
 tests/test_fused.py's sum(frame * w), w = (flat index % 7 + 1) / 7, and
 both packages render from the same primary rays
-(torch_port_util.shared_primary_rays).
+(torch_port_util.shared_primary_rays). Bouncing scenes:
+tests/test_torch_bounce_grad.py.
 
 Tolerance: rtol 1e-4 and atol 1e-4 * max|g|. Each gradient is a sum of
 per-pixel terms in f32; torch and XLA add them, and the terms' own
@@ -44,8 +45,10 @@ def _key(path):
     return "/".join(map(str, path))
 
 
-def _grads(js, paths):
-    """({key: jax.grad}, {key: port grad}) of sum(frame * w), as numpy."""
+def _grads(js, paths, eager=False):
+    """({key: jax.grad}, {key: port grad}) of sum(frame * w), as numpy.
+    eager: jax.grad op by op (jax.disable_jit), without the FMA
+    contraction of a jitted program."""
     ts = port_scene(js)
     st = js.static.settings
     w = loss_weights((3, st.height, st.width))
@@ -54,7 +57,12 @@ def _grads(js, paths):
             s = j_inverse.apply_params(js, p, paths)
             return jnp.sum(j_pipeline.render_scene.__wrapped__(s)[0] * w)
 
-        jg = jax.jit(jax.grad(loss))(j_inverse.extract_params(js, paths))
+        params = j_inverse.extract_params(js, paths)
+        if eager:
+            with jax.disable_jit():
+                jg = jax.grad(loss)(params)
+        else:
+            jg = jax.jit(jax.grad(loss))(params)
         tp = t_inverse.extract_params(ts, paths)
         frame, _ = render_scene(t_inverse.apply_params(ts, tp, paths))
         (frame * torch.from_numpy(w)).sum().backward()

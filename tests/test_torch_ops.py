@@ -8,6 +8,7 @@ fuse or reorder an f32 expression the port evaluates op by op).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -176,6 +177,81 @@ def test_spec_pow():
     out = t_shading.spec_pow(tb, te)
     _close(j_shading.spec_pow(jb, je), out)
     assert (out.numpy()[base <= 0] == 0).all()
+
+
+def _refraction_cases():
+    """(d3, n3, ior) rows: random incidences from both sides of the
+    surface, then a total internal reflection, the exact critical angle
+    (k == 0: cos^2 = 0.75 exactly in f32, ior 2 from inside) and head-on
+    hits from both sides."""
+    rng = np.random.default_rng(8)
+    d = _rows(rng, 400)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    n = _rows(rng, 400)
+    n /= np.linalg.norm(n, axis=0, keepdims=True)
+    ior = rng.uniform(1.0, 2.0, 400).astype(np.float32)
+    c = np.float32(np.sqrt(0.75))
+    while np.float32(c * c) != np.float32(0.75):
+        c = np.nextafter(c, np.float32(1))
+    special = np.asarray([
+        # d (3), n (3), ior: TIR from inside, the critical angle, head-on
+        # from outside and from inside
+        [0.9, 0.0, 0.43589, 0, 0, 1, 1.5],
+        [0.5, 0.0, c, 0, 0, 1, 2.0],
+        [0, 0, -1, 0, 0, 1, 1.4],
+        [0, 0, 1, 0, 0, 1, 1.4],
+    ], np.float32).T
+    d = np.concatenate([d, special[0:3]], axis=1)
+    n = np.concatenate([n, special[3:6]], axis=1)
+    ior = np.concatenate([ior, special[6]])
+    return d, n, ior
+
+
+def test_refract_fresnel_r():
+    """refract_r and fresnel_r against JAX on both sides of the surface,
+    with TIR (k < 0: the zero vector, kr = 1), the exact critical angle
+    (k == 0 refracts) and head-on hits; gradients with respect to the
+    direction, the normal and the ior finite everywhere and equal to
+    jax.grad's."""
+    d, n, ior = _refraction_cases()
+    (jd, td), (jn, tn), (ji, tior) = _both(d, n, ior)
+    j_refr = j_shading.refract_r(jd, jn, ji)
+    t_refr = t_shading.refract_r(td, tn, tior)
+    _close(j_refr, t_refr)
+    _close(j_shading.fresnel_r(jd, jn, ji), t_shading.fresnel_r(td, tn, tior))
+    tir, crit, front, back = (slice(-4 + i, None if i == 3 else -3 + i)
+                              for i in range(4))
+    assert (t_refr[:, tir] == 0).all() and t_shading.fresnel_r(
+        td, tn, tior)[tir].item() == 1.0
+    assert (t_refr[:, crit] != 0).any()  # k == 0 refracts
+    assert 0 < t_shading.fresnel_r(td, tn, tior)[front].item() < 1
+    assert 0 < t_shading.fresnel_r(td, tn, tior)[back].item() < 1
+    for fn in ("refract_r", "fresnel_r"):
+        def j_loss(a, b, c, fn=fn):
+            return jnp.sum(getattr(j_shading, fn)(a, b, c))
+
+        jg = jax.grad(j_loss, argnums=(0, 1, 2))(jd, jn, ji)
+        args = [x.clone().requires_grad_(True) for x in (td, tn, tior)]
+        getattr(t_shading, fn)(*args).sum().backward()
+        for j, t in zip(jg, args):
+            assert torch.isfinite(t.grad).all(), fn
+            np.testing.assert_allclose(_np(t.grad), np.asarray(j), rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_morton_key_r():
+    """Bit-equal to the JAX uint32 key, a degenerate axis (span 0)
+    included; every key fits 30 bits."""
+    rng = np.random.default_rng(9)
+    p = _rows(rng, 2000, scale=3.0)
+    flat = p.copy()
+    flat[1] = 0.5  # one axis without extent
+    for pts in (p, flat):
+        (jp, tp), = _both(pts)
+        key = t_geom.morton_key_r(tp)
+        assert key.dtype == torch.int64 and int(key.max()) < 2 ** 30
+        _equal(key, np.asarray(j_geom.morton_key_r(jp)).astype(np.int64))
+    assert t_geom.MORTON_INACTIVE == 0xFFFFFFFF
 
 
 # ---- texture and skybox ------------------------------------------------------

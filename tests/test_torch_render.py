@@ -1,7 +1,8 @@
 """Port parity of the whole forward render: rendering_tpu_torch's
 render_scene on the CPU against the JAX package's render_scene with the
-Pallas kernel in interpret mode, on the flagship scene and on a
-hand-built non-bouncing scene; plus the port's import boundary.
+Pallas kernel in interpret mode, on the flagship scene (its mesh also
+reflective or transparent) and on a hand-built non-bouncing scene; plus
+the port's import boundary.
 
 Tolerance: frames agree to atol=2e-5 (XLA's exp/log/sqrt may differ from
 torch's by an ulp and it may fuse sums in another order), and the u8
@@ -31,6 +32,7 @@ from rendering_tpu.render.pipeline import render_scene as j_render_scene
 from rendering_tpu_torch.flagship import build_flagship_scene as t_flagship
 from rendering_tpu_torch.flagship import procedural_mesh as t_procedural_mesh
 from rendering_tpu_torch.models import parser as t_parser
+from rendering_tpu_torch.models.scene import _MAT_IDS as MAT_IDS
 from rendering_tpu_torch.models.scene import build_scene as t_build_scene
 from rendering_tpu_torch.models.settings import RenderSettings as TSettings
 from rendering_tpu_torch.render.pipeline import (
@@ -39,9 +41,13 @@ from rendering_tpu_torch.render.pipeline import (
     render_scene,
 )
 from torch_port_util import (
+    assert_bounce_frames_agree,
     golden_fractions,
+    j_render_fresh,
     jax_leaves,
+    jax_material,
     port_scene,
+    shared_primary_rays,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -221,8 +227,10 @@ def test_render_is_differentiable():
 ])
 def test_unported_features_raise(change):
     """Features of later slices raise NotImplementedError rather than
-    render something else. The two that the scene-file slice ported,
-    adaptive SSAA and the statistics counters, render instead."""
+    render something else. Those that later slices ported render instead:
+    adaptive SSAA and the statistics counters (the scene-file slice), and
+    a reflective or transparent mesh (the bouncing slice), whose frame
+    matches the JAX package's from the same primary rays."""
     overrides = {}
     if change in ("enable_ssaa", "show_normals", "show_ac",
                   "collect_statistics"):
@@ -230,10 +238,26 @@ def test_unported_features_raise(change):
     ts = t_flagship(16, 8, n_tris=200, with_maps=False, device="cpu",
                     settings_overrides=overrides)
     if change in ("reflective", "transparent"):
-        from rendering_tpu_torch.models.scene import _MAT_IDS
-
-        ts = dataclasses.replace(ts, static=dataclasses.replace(
-            ts.static, mat_types=(_MAT_IDS[change],)))
+        # The hand-built scene with its mesh a mirror or glass, seen from
+        # outside. (The flagship's camera and point light sit inside its
+        # mesh: mirrored, its rays bounce between the inner faces, where
+        # the bias along the normal decides self-hits by an ulp.)
+        jsd, jmesh = _hand_built_defs(j_parser, JSettings(
+            width=16, height=8, enable_ssaa=False, output_progress=False,
+            enable_output=False, background_color=(0.2, 0.25, 0.3),
+            **INTERPRET))
+        jmesh.mesh = j_procedural_mesh(200, pos=(0.8, 0.1, -3),
+                                       size=(1.4, 1.4, 1.4))
+        js = jax_material(j_build_scene(jsd), 1, MAT_IDS[change])
+        ts = port_scene(js)
+        assert ts.static.mat_types[1] == MAT_IDS[change]
+        assert int(ts.mat_type[1]) == MAT_IDS[change]
+        with shared_primary_rays(js):
+            j_frame = j_render_fresh(js)
+            t_frame, aux = render_scene(ts)
+        assert_bounce_frames_agree(t_frame.detach().numpy(), j_frame)
+        assert aux["stats"]["rays_casted"] > 3 * 16 * 8
+        return
     if change in ("enable_ssaa", "collect_statistics"):
         frame, aux = render_scene(ts)
         assert torch.isfinite(frame).all()

@@ -1,7 +1,8 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py):
 carrying a JAX scene across as numpy, the two-mesh scene of
-tests/test_fused.py for both packages, renders of both packages from
-the same primary rays, the gradient loss weights, and the golden u8
+tests/test_fused.py for both packages, the JAX tiny scene and settings
+or material changes of a JAX scene, renders of both packages from the
+same primary rays, the gradient loss weights, and the golden u8
 measures."""
 
 from __future__ import annotations
@@ -17,6 +18,14 @@ import rendering_tpu.render.pipeline as j_pipeline
 import rendering_tpu_torch.render.pipeline as t_pipeline
 from rendering_tpu.render.raygen import primary_rays as j_primary_rays
 from rendering_tpu_torch.convert import scene_from_numpy
+
+# The parity tests run in several pytest-xdist workers at once. With one
+# intra-op thread per core in every worker, torch's OpenMP threads
+# oversubscribe the cores and wait on each other at every eager op: six
+# concurrent CPU renders of t01_simple_shapes.scene through the CLI had
+# not finished after 150 s at 8 threads each on 8 cores, and took 6.4-7.4
+# s at 1 thread each (1.4 s alone at 8).
+torch.set_num_threads(1)
 
 
 def jax_leaves(scene) -> dict:
@@ -108,12 +117,59 @@ def jax_two_mesh_scene(transparent_second=False, height=32):
                                      transparent_second))
 
 
+def jax_settings(js, **kw):
+    """The JAX scene with its settings changed (e.g. pallas_interpret)."""
+    st = js.static
+    return dataclasses.replace(js, static=dataclasses.replace(
+        st, settings=dataclasses.replace(st.settings, **kw)))
+
+
+def jax_material(js, oi: int, mat: int):
+    """The JAX scene with object oi's material set to mat (a MAT_* id),
+    in its mat_type leaf and in the static copy that picks the bounce
+    loop's branches."""
+    mats = list(js.static.mat_types)
+    mats[oi] = mat
+    return dataclasses.replace(
+        js, mat_type=js.mat_type.at[oi].set(mat),
+        static=dataclasses.replace(js.static, mat_types=tuple(mats)))
+
+
+def jax_tiny_scene(width=64, height=32, n_tris=128, **settings):
+    """The JAX package's build_tiny_scene, its Pallas kernel in interpret
+    mode, with any further settings."""
+    from rendering_tpu.flagship import build_tiny_scene
+
+    return jax_settings(build_tiny_scene(width, height, n_tris),
+                        pallas_interpret=True, **settings)
+
+
 def loss_weights(shape):
     """The weights of tests/test_fused.py's gradient loss sum(frame * w):
     w = (flat index % 7 + 1) / 7, as one f32 numpy array that both
     packages multiply by."""
     n = int(np.prod(shape))
     return ((np.arange(n) % 7 + 1) / 7.0).astype(np.float32).reshape(shape)
+
+
+def assert_bounce_frames_agree(t_frame, j_frame):
+    """A bouncing frame of the port (t_frame) against JAX's (3, H, W):
+    atol 2e-5 on all but 0.2% of the values, and those within 1e-4.
+
+    Why not 2e-5 everywhere: XLA on the CPU contracts multiply-adds into
+    FMAs inside a jitted program (the reference builds with
+    -ffp-contract=off, the port keeps every f32 operation apart, as JAX's
+    op-by-op eager run does). Near a sphere's silhouette the quadratic's
+    cancellation amplifies that ulp: on the tiny scene with its glass
+    sphere made a mirror, the jitted first bounce's continuation
+    directions differ from the port's by up to 5.0e-5, while JAX's eager
+    run of the same rays equals the port's to 3e-8, and the second bounce
+    from the same continuation agrees to 3e-7. A few such lanes move
+    their pixel by up to 5.3e-5."""
+    d = np.abs(np.asarray(t_frame) - np.asarray(j_frame))
+    assert d.shape == np.shape(j_frame) and np.isfinite(d).all()
+    assert (d > 2e-5).mean() <= 0.002, (d > 2e-5).sum()
+    assert d.max() <= 1e-4, d.max()
 
 
 def golden_fractions(a_u8, b_u8):
