@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from rendering_tpu_torch/csrc with nvcc,
-then drives the port's paths through the entry points a user calls.
+Builds the port's CUDA kernels from rendering_tpu_torch/csrc with nvcc
+(one nvcc per source, started together), then drives the port's paths
+through the entry points a user calls.
 
 The 250k-triangle flagship scene at 3840x1080 (kernels K1 closest hit
 and K2 any hit):
@@ -89,25 +90,52 @@ of the tables):
 19. renders tests/scenes/t01_simple_shapes.scene through `cli.main` and
     holds the BMP to tests/test_golden.py's t01 limits.
 
-Each phase prints its duration. Prints the card, a JSON line of the path
-numbers, a JSON line of per-kernel numbers, and as its last line
-{"ok": true, "device": {...}}.
+The hardware-ceiling probes (ops/microbench.py: K7 the FMA chains, fused
+and unfused, and their Triton twin; K8 the grid's per-CTA cost; K9 the
+pair test's product in f32 and TF32), through their two tools:
+
+20. runs tools/microbench_vpu_torch.py's measurement (the f32 rates with
+    and without FMA, the Triton twin, HBM) with the launch counts at 0
+    before it; holds each K7 route against its plain version on one full
+    (256, 1024) block at INNER 4096 (bit-equal; the fused routes may
+    differ on at most FMA_MAX_MISMATCH of the values);
+21. runs tools/microbench_kernel_torch.py's measurement (K8 at 1, 16384
+    and 4096 CTAs; K9 at the JAX tool's eleven configurations and the four
+    epilogue ones at TF32) likewise; holds K8 against a copy and every K9
+    configuration against its plain version on seeded normal data
+    (highest bit-equal, default within the TF32 limits, which must reject
+    an f32 product and inputs truncated to TF32); times the plain
+    versions, x.clone() (K8's library time) and torch.bmm on the 64
+    tables (K9's); then prints the measured f32 and HBM rates beside
+    F32_OPS_RATE and HBM_RATE, and each K1-K6 row's share of its
+    operations bound at both rates.
+
+Each phase prints its duration. Every time comes from
+`utils.timer.mean_ms` (CUDA events, the launches queued behind a ~2 ms
+spin). Prints the card, a JSON line of the path numbers, a JSON line of
+per-kernel numbers, and as its last line {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero; without a CUDA
 device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 import torch
+
+from rendering_tpu_torch.device import describe_card
+from rendering_tpu_torch.utils.timer import mean_ms
 
 N_TRIS = 250_000
 WIDTH, HEIGHT = 3840, 1080
@@ -146,6 +174,18 @@ TPU_FUSED = "rendering_tpu/ops/pallas_intersect.py:1154"
 TPU_ROOT_FILTER = "rendering_tpu/ops/pallas_intersect.py:328"
 TPU_STATS = "rendering_tpu/ops/pallas_intersect.py:177"
 TPU_TWO_PHASE = "rendering_tpu/ops/pallas_intersect.py:954"
+# The hardware-ceiling probes (K7-K9) and the TPU kernels they replace.
+PROBE_SOURCE = "rendering_tpu_torch/csrc/microbench.cu"
+TRITON_SOURCE = "rendering_tpu_torch/ops/microbench_triton.py"
+TPU_FMA = "tools/microbench_vpu.py:65"
+TPU_GRID = "tools/microbench_kernel.py:61"
+TPU_MATMUL = "tools/microbench_kernel.py:127"
+F32_FLOPS_RATE = 67e12      # H100 SXM f32, an FMA counted as 2 FLOPs
+TF32_FLOPS_RATE = 495e12    # H100 SXM TF32 tensor cores, dense
+# K7's fused variant and its Triton twin should equal the plain version bit
+# for bit, as the unfused variant must; at most this share of the values
+# may differ (a contraction placed otherwise).
+FMA_MAX_MISMATCH = 1e-4
 # The bouncing workload: build_tiny_scene's four materials and three
 # lights with the 250k procedural mesh, at the flagship's resolution.
 TINY_PATHS = (("lights", 0, "intensity"), ("obj_color",), ("meshes", 0, "v"))
@@ -212,30 +252,6 @@ name={obj}
 """
 
 
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card, by CUDA events, after one
-    warm-up call."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def flags(ci, name) -> dict:
     """The query flags of kernel variant `name` (ops/cuda_intersect.py
     KERNELS): anyhit, root_filter, collect_stats, and two_phase for a
@@ -264,9 +280,12 @@ def plain(ci, tables, prep, bfc, stats=None, two_phase=False, **kw):
 
 @contextlib.contextmanager
 def counted(ci, out: dict):
-    """Set every kernel's launch count to 0, run the block, and store the
-    counts just after it (synchronized) in `out`."""
-    launchers = ci.KERNELS
+    """Set every kernel's launch count to 0 (the intersection kernels and
+    the probes), run the block, and store the counts just after it
+    (synchronized) in `out`."""
+    from rendering_tpu_torch.ops import microbench as mb
+
+    launchers = {**ci.KERNELS, **mb.KERNELS}
     for k in launchers.values():
         k.launches = 0
     yield
@@ -324,8 +343,8 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
     query's work. Also checks the kernel against its plain version on the
     whole query."""
     kw = flags(ci, name)
-    ms = cuda_ms(lambda: launch(ci, tables, prep, bfc, **kw), reps=20)
-    plain_ms = cuda_ms(lambda: plain(ci, tables, prep, bfc, **kw), reps=1)
+    ms = mean_ms(lambda: launch(ci, tables, prep, bfc, **kw), reps=20)
+    plain_ms = mean_ms(lambda: plain(ci, tables, prep, bfc, **kw), reps=1)
     stats: dict = {}
     out_p = plain(ci, tables, prep, bfc, stats, **kw)
     out_k = launch(ci, tables, prep, bfc, **kw)
@@ -335,7 +354,7 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
     n, aux = prep.n_rays, prep.aux
     fused = isinstance(tables, ci.FusedTables)
     geo = tables.geo if fused else tables
-    prepass_ms = cuda_ms(
+    prepass_ms = mean_ms(
         lambda: ci.prepare(geo, aux[0:3, :n], aux[3:6, :n], aux[9, :n]),
         reps=5)
     table_tensors = [geo.tri, geo.cbox] + ([tables.idmap] if fused else [])
@@ -354,6 +373,7 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
         "plain_ms": plain_ms, "prepass_ms": prepass_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "ops": ops, "bytes_ms": bytes_ms,
     }
 
 
@@ -624,7 +644,7 @@ def two_phase_numbers(ci, tb, ro3, rd3, t_limit, frac: float, bfc) -> dict:
     part2 = ci.slice_supers(tb, k, cs)
     phase2 = kernel_numbers(ci, name, part2,
                             ci.prepare(part2, ro_p, rd_p, tl_p), bfc)
-    call_ms = cuda_ms(lambda: ci.any_hit_two_phase(
+    call_ms = mean_ms(lambda: ci.any_hit_two_phase(
         tb, ro3, rd3, t_limit, frac=frac, backface_culling=bfc), reps=5)
     phases = (phase1, phase2)
     return {
@@ -635,6 +655,8 @@ def two_phase_numbers(ci, tb, ro3, rd3, t_limit, frac: float, bfc) -> dict:
         "bound_ms": sum(p["bound_ms"] for p in phases),
         "bound_by": ("operations" if all(p["bound_by"] == "operations"
                                          for p in phases) else "bytes"),
+        "ops": sum(p["ops"] for p in phases),
+        "bytes_ms": sum(p["bytes_ms"] for p in phases),
         "call_ms": call_ms,
     }
 
@@ -778,9 +800,16 @@ def scene_at(scene_def, w, h):
 
 
 def replaces(name: str) -> str:
-    """The TPU kernel (file:line) that variant `name` replaces: the
+    """The TPU kernel (file:line) that kernel `name` replaces: a probe of
+    tools/microbench_*.py (K7-K9; K7's Triton twin stands beside K7), the
     two-phase any hit (K6), the counters (K3), the root filter (K4), K5
     or K1/K2."""
+    if name.startswith("fma_chain"):
+        return TPU_FMA
+    if name == "grid_overhead":
+        return TPU_GRID
+    if name.startswith("pair_product"):
+        return TPU_MATMUL
     if "two_phase" in name:
         return TPU_TWO_PHASE
     if "stats" in name:
@@ -788,6 +817,264 @@ def replaces(name: str) -> str:
     if "rootfilter" in name:
         return TPU_ROOT_FILTER
     return TPU_FUSED if name.startswith("fused") else TPU_KERNEL
+
+
+def sass_counts(path: str) -> dict:
+    """f32 and tensor-core instructions of each kernel in a built library,
+    counted in its SASS (cuobjdump -sass): shows that nvcc kept the
+    probes' arithmetic (every product row of K9, both K7 variants).
+    Empty where the toolkit has no cuobjdump."""
+    import re
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return {}
+    sass = subprocess.run([exe, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:  # a mangled name: <length><identifier>, then the template
+            name = m.group(1)
+            for d in re.finditer(r"\d+", name):
+                ident = name[d.end():d.end() + int(d.group())]
+                if ident.endswith("_kernel"):
+                    args = re.findall(r"L[bi](\d+)E",
+                                      name[d.end() + len(ident):])
+                    fn = f"{ident}<{','.join(args)}>"  # fma_chain_kernel<1,6>
+                    break
+            counts[fn] = dict.fromkeys(("FFMA", "FMUL", "FADD", "HMMA"), 0)
+        elif fn is not None:
+            for op in counts[fn]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
+    return counts
+
+
+def tool(name: str):
+    """tools/<name>.py as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def chain_mismatch(out, ref) -> tuple[int, float]:
+    """Values of two f32 tensors that differ in their bits (NaN against
+    NaN counts as equal), and the max |difference| over the values finite
+    in both."""
+    nan_o, nan_r = torch.isnan(out), torch.isnan(ref)
+    both = ~nan_o & ~nan_r
+    mis = int((nan_o != nan_r).sum()) + int(
+        (out[both].view(torch.int32) != ref[both].view(torch.int32)).sum())
+    fin = torch.isfinite(out) & torch.isfinite(ref)
+    err = float((out[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+    return mis, err
+
+
+def probe_row(name, source, launches, err, ms, plain_ms, ops_ms, bytes_ms,
+              library_ms):
+    return {"name": name, "route": "triton" if source == TRITON_SOURCE
+            else "cuda", "source": source, "replaces": replaces(name),
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def fma_phase(ci, mb, card_line) -> tuple[list, dict]:
+    """tools/microbench_vpu_torch.py's measurement (K7 fused and unfused,
+    the Triton twin, the HBM probe) with the launch counts at 0 before it;
+    then each route at one repeat of the full (256, 1024) block against
+    the plain version (the grid repeats the same values), and the plain
+    versions' times."""
+    vpu_tool = tool("microbench_vpu_torch")
+    counts: dict = {}
+    with counted(ci, counts):
+        raw = vpu_tool.measure("cuda")
+    check_launches(counts, {f"fma_chain_{r}": vpu_tool.REPS + 1
+                            for r in vpu_tool.ROUTES},
+                   "tools/microbench_vpu_torch.py")
+    rates = vpu_tool.rates(raw, card_line)
+    print(f"microbench_vpu_torch: {json.dumps(rates)}")
+    x = torch.linspace(0.0, 1.0, mb.ROWS * mb.LANES, dtype=torch.float32,
+                       device="cuda").reshape(mb.ROWS, mb.LANES)
+    plain = {f: mb.fma_chain_plain(x, fused=f) for f in (True, False)}
+    plain_ms = {f: mean_ms(lambda f=f: mb.fma_chain_plain(x, fused=f),
+                           reps=1) for f in (True, False)}
+    rows = []
+    for route in vpu_tool.ROUTES:
+        fused = route != "unfused"
+        out = (mb.fma_chain_triton(x, grid=1) if route == "triton"
+               else mb.fma_chain(x, grid=1, fused=fused))
+        mis, err = chain_mismatch(out, plain[fused])
+        limit = 0 if route == "unfused" else FMA_MAX_MISMATCH * x.numel()
+        print(f"parity fma_chain_{route}, one (256, 1024) block, INNER "
+              f"{mb.INNER}: {mis} of {x.numel()} values differ from the plain "
+              f"version (limit {limit:g}); max |diff| over finite values "
+              f"{err}; {int((~torch.isfinite(out)).sum())} non-finite")
+        if mis > limit:
+            raise AssertionError(f"fma_chain_{route} disagrees with its "
+                                 f"plain version")
+        r = raw["fma"][route]
+        # Bound: the FMAs at 33.5e12/s, or unfused twice the instructions.
+        ops_ms = r["ops"] / (2 if fused else 1) / F32_OPS_RATE * 1e3
+        name = f"fma_chain_{route}"
+        rows.append(probe_row(
+            name, TRITON_SOURCE if route == "triton" else PROBE_SOURCE,
+            counts[name], err, r["ms"], plain_ms[fused], ops_ms,
+            2 * x.numel() * 4 / HBM_RATE * 1e3, None))
+    return rows, {"rates": rates, "raw": raw}
+
+
+def pair_inputs(tc, br, k, epilogue, seed):
+    """Seeded normal tables and feats (the tools' own data accept no pair)
+    and o_init at a K9 configuration, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    coef = torch.randn((64, 4 * tc, k), generator=gen, device="cuda")
+    feats = torch.randn((k, br), generator=gen, device="cuda")
+    o_init = torch.full((1, br), 3.0e38 if epilogue else 0.0, device="cuda")
+    return feats, coef, o_init
+
+
+def pair_parity(mb, cfg, n_steps, seed) -> float:
+    """K9 at one configuration against its plain version on seeded data:
+    bit-equal at highest; at default within the TF32 limits, which must
+    reject the f32 product and truncated TF32 inputs. Returns the max
+    |difference|."""
+    tc, br, k, precision, epilogue = cfg
+    feats, coef, o_init = pair_inputs(tc, br, k, epilogue, seed)
+    kw = dict(tc=tc, n_steps=n_steps, precision=precision, epilogue=epilogue)
+    out = mb.pair_product(feats, coef, o_init, **kw)
+    ref = mb.pair_product_plain(feats, coef, o_init, **kw)
+    mis, err = chain_mismatch(out, ref)
+    what = f"parity {mb.pair_name(precision, epilogue)} tc={tc} br={br} k={k}"
+    accepted = ""
+    if epilogue:
+        accepted = (f"; accepted lanes kernel {int((out < 3.0e38).sum())}, "
+                    f"plain {int((ref < 3.0e38).sum())} of {br}")
+    if precision == "highest":
+        print(f"{what}: {mis} values differ (bit-equal required){accepted}")
+        if mis:
+            raise AssertionError(f"{what}: kernel and plain version disagree")
+        return err
+    f32 = dict(kw, precision="highest")
+    controls = {
+        "f32 product": mb.pair_product_plain(feats, coef, o_init, **f32),
+        "truncated inputs": mb.pair_product_plain(
+            mb.truncate_tf32(feats), mb.truncate_tf32(coef), o_init, **f32)}
+    how = dict(n_steps=n_steps, epilogue=epilogue)
+    reading, limit = mb.tf32_disagreement(out, ref, feats, coef, **how)
+    ctl = {name: mb.tf32_disagreement(c, ref, feats, coef, **how)[0]
+           for name, c in controls.items()}
+    measure = (f"share of columns outside rtol {mb.TF32_T_RTOL}" if epilogue
+               else "max |diff| / (2 max sum |products|)")
+    print(f"{what}: {measure} {reading:.3e} (limit {limit:g}); controls "
+          + ", ".join(f"{n} {v:.3e}" for n, v in ctl.items()) + accepted)
+    if reading > limit:
+        raise AssertionError(f"{what}: kernel and plain version disagree")
+    for name, v in ctl.items():
+        if v <= limit:
+            raise AssertionError(f"{what}: the TF32 limit does not reject "
+                                 f"the {name}")
+    return err
+
+
+def bmm_ms(coef, feats, n_steps, tf32: bool) -> float:
+    """K9's product through torch.bmm: one launch over the 64 tables,
+    scaled to n_steps steps; TF32 allowed for `default`, then restored."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        rhs = feats.expand(coef.shape[0], *feats.shape)
+        ms = mean_ms(lambda: torch.bmm(coef, rhs), reps=5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return ms * n_steps / coef.shape[0]
+
+
+def kernel_probe_phase(ci, mb, card_line) -> tuple[list, dict]:
+    """tools/microbench_kernel_torch.py's measurement (K8 at 1, 16384 and
+    4096 CTAs; K9 at every configuration) with the launch counts at 0
+    before it; then K8 against a copy and every K9 configuration against
+    its plain version, and each kernel's numbers at the JAX tool's first
+    configuration (tc 256, br 1024, k 13)."""
+    ktool = tool("microbench_kernel_torch")
+    counts: dict = {}
+    with counted(ci, counts):
+        raw = ktool.measure("cuda")
+    expect = {"grid_overhead": len(ktool.GRID_STEPS) * (ktool.REPS + 1)}
+    for _, _, _, p, e in ktool.CONFIGS:
+        name = mb.pair_name(p, e)
+        expect[name] = expect.get(name, 0) + ktool.REPS + 1
+    check_launches(counts, expect, "tools/microbench_kernel_torch.py")
+    summary = ktool.summary(raw, card_line)
+    print(f"microbench_kernel_torch: {json.dumps(summary)}")
+
+    x = torch.randn((8, ktool.BR), device="cuda")
+    for n in ktool.GRID_STEPS:
+        if not torch.equal(mb.grid_overhead(x, n), x):
+            raise AssertionError(f"grid_overhead at {n} CTAs is no copy")
+    print(f"parity grid_overhead at {ktool.GRID_STEPS} CTAs: equal to x")
+    steps = max(ktool.GRID_STEPS)
+    rows = [probe_row(
+        "grid_overhead", PROBE_SOURCE, counts["grid_overhead"], 0.0,
+        summary["grid_ms"][steps],
+        mean_ms(lambda: mb.grid_overhead_plain(x, steps), reps=20), 0.0,
+        ktool.grid_bytes(ktool.BR) / HBM_RATE * 1e3,
+        mean_ms(lambda: x.clone(), reps=20))]
+
+    errs: dict = {}
+    for i, cfg in enumerate(ktool.CONFIGS):
+        name = mb.pair_name(cfg[3], cfg[4])
+        err = pair_parity(mb, cfg, ktool.N_STEPS, seed=i)
+        errs[name] = max(errs.get(name, 0.0), err)
+    for r in raw["pair"]:
+        if (r["tc"], r["br"], r["k"]) != (256, 1024, 13):
+            continue
+        name = mb.pair_name(r["precision"], r["epilogue"])
+        feats, coef, o_init = ktool.tool_inputs(
+            tc=256, br=1024, k=13, epilogue=r["epilogue"], device="cuda")
+        plain_ms = mean_ms(lambda: mb.pair_product_plain(
+            feats, coef, o_init, tc=256, n_steps=r["n_steps"],
+            precision=r["precision"], epilogue=r["epilogue"]), reps=1)
+        rate = (TF32_FLOPS_RATE if r["precision"] == "default"
+                else F32_FLOPS_RATE)
+        rows.append(probe_row(
+            name, PROBE_SOURCE, counts[name], errs[name], r["ms"], plain_ms,
+            r["flops"] / rate * 1e3, r["bytes"] / HBM_RATE * 1e3,
+            bmm_ms(coef, feats, r["n_steps"], r["precision"] == "default")))
+    print("library_ms: torch.bmm over the 64 tables for K9; x.clone() for K8 "
+          "(its function; the probe itself measures launch and per-CTA "
+          "cost); none for K7 (no PyTorch call computes an FMA chain)")
+    return rows, {"summary": summary}
+
+
+def ceiling_report(nums: dict, rates: dict, card_line: str) -> dict:
+    """The measured rates beside the constants the bounds use, and each
+    K1-K6 row's share of its operations bound at both rates."""
+    measured = rates["f32_nofma_ops_per_sec"]
+    hbm = rates["hbm_bandwidth_gb_per_sec"] * 1e9
+    print(f"f32 issue rate without FMA: measured {measured:.6e}/s against "
+          f"F32_OPS_RATE {F32_OPS_RATE:.6e}/s ({measured / F32_OPS_RATE:.4f}"
+          f"x); with FMA {rates['f32_fma_flops_per_sec']:.6e} FLOP/s against "
+          f"{F32_FLOPS_RATE:.6e}; HBM {hbm:.6e} B/s against HBM_RATE "
+          f"{HBM_RATE:.6e} ({hbm / HBM_RATE:.4f}x) on {card_line}")
+    shares = {}
+    for name, n in nums.items():
+        sheet = n["ops"] / F32_OPS_RATE * 1e3
+        meas = n["ops"] / measured * 1e3
+        shares[name] = {"ms": n["ms"], "ops_ms_datasheet": sheet,
+                        "ops_ms_measured": meas,
+                        "share_datasheet": sheet / n["ms"],
+                        "share_measured": meas / n["ms"]}
+        print(f"{name}: {n['ms']:.5f} ms; operations bound {sheet:.5f} ms at "
+              f"F32_OPS_RATE ({sheet / n['ms']:.2%}), {meas:.5f} ms at the "
+              f"measured rate ({meas / n['ms']:.2%})")
+    return shares
 
 
 def main() -> int:
@@ -800,22 +1087,29 @@ def main() -> int:
         build_tiny_scene,
     )
     from rendering_tpu_torch.ops import cuda_intersect as ci
+    from rendering_tpu_torch.ops import microbench as mb
     from rendering_tpu_torch.render.pipeline import render_scene
+    from rendering_tpu_torch.utils import nvcc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card_line = card()
+    card_line = describe_card()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(card_line)
     lap = Laps()
 
-    # ---- build -----------------------------------------------------------
+    # ---- build: one nvcc per source, all started together -----------------
     t0 = time.perf_counter()
-    path, log = ci.build_library()
-    print(f"built {path} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas:", line.strip())
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        built = list(pool.map(nvcc.build_library, (ci.SOURCE, mb.SOURCE)))
+    for path, log in built:
+        print(f"built {path}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print("  ptxas:", line.strip())
+    print(f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    for fn, n in sass_counts(built[1][0]).items():
+        print(f"  sass {fn}: {n}")
 
     t0 = time.perf_counter()
     scene = build_flagship_scene(WIDTH, HEIGHT, n_tris=N_TRIS)
@@ -843,7 +1137,7 @@ def main() -> int:
         with torch.no_grad():
             render_scene(scene)
 
-    frame_ms = cuda_ms(forward, reps=3)
+    frame_ms = mean_ms(forward, reps=3)
     rays = WIDTH * HEIGHT
     print(f"forward frame {WIDTH}x{HEIGHT}, {N_TRIS} triangles: "
           f"{frame_ms:.3f} ms, {rays / frame_ms * 1e3:.4e} rays/s "
@@ -906,7 +1200,7 @@ def main() -> int:
         with torch.no_grad():
             render_scene(mm)
 
-    mm_frame_ms = cuda_ms(mm_forward, reps=3)
+    mm_frame_ms = mean_ms(mm_forward, reps=3)
     print(f"multimesh forward frame: {mm_frame_ms:.3f} ms on {card_line}")
 
     lap("6 multimesh forward")
@@ -981,7 +1275,7 @@ def main() -> int:
         with torch.no_grad():
             render_scene(sc)
 
-    sf_frame_ms = cuda_ms(lambda: sf_forward(scene), reps=2)
+    sf_frame_ms = mean_ms(lambda: sf_forward(scene), reps=2)
     print(f"scene-file frame {SCENE_W}x{SCENE_H} (primary + SSAA): "
           f"{sf_frame_ms:.3f} ms on {card_line}")
 
@@ -1006,7 +1300,7 @@ def main() -> int:
                                     bfc)
         print(f"{name}: {json.dumps(nums[name])}")
     kept.clear()
-    sfs_frame_ms = cuda_ms(lambda: sf_forward(sfs["scene"]), reps=2)
+    sfs_frame_ms = mean_ms(lambda: sf_forward(sfs["scene"]), reps=2)
     print(f"counting frame {SCENE_W}x{SCENE_H}: {sfs_frame_ms:.3f} ms vs "
           f"{sf_frame_ms:.3f} ms without the counters on {card_line}")
 
@@ -1078,7 +1372,7 @@ def main() -> int:
         with torch.no_grad():
             render_scene(tiny)
 
-    b_frame_ms = cuda_ms(tiny_forward, reps=2)
+    b_frame_ms = mean_ms(tiny_forward, reps=2)
     print(f"bouncing frame {WIDTH}x{HEIGHT}, {N_TRIS} triangles: "
           f"{b_frame_ms:.3f} ms (CUDA events, mean of 2 after 1 warm-up) on "
           f"{card_line}")
@@ -1131,7 +1425,7 @@ def main() -> int:
         print(f"any_hit_two_phase frac={frac}: {json.dumps(n)}")
     k2_same = kernel_numbers(ci, "any_hit", tb,
                              ci.prepare(tb, ro3, rd3, t_lim), bfc)
-    k2_same["call_ms"] = cuda_ms(lambda: ci.any_hit(
+    k2_same["call_ms"] = mean_ms(lambda: ci.any_hit(
         tb, ro3, rd3, t_lim, backface_culling=bfc), reps=5)
     print(f"any_hit (single pass) on the same query: {json.dumps(k2_same)}")
     nums["any_hit_two_phase"] = k6[FRACS[-1]]
@@ -1223,6 +1517,14 @@ def main() -> int:
         raise AssertionError("t01 is outside its golden tolerance")
     lap("19 t01 cli")
 
+    # ---- 20-21. the hardware-ceiling probes (K7-K9) through their tools ------
+    probe_rows, vpu = fma_phase(ci, mb, card_line)
+    lap("20 K7 f32 rates, HBM (microbench_vpu_torch)")
+    rows_k, kprobe = kernel_probe_phase(ci, mb, card_line)
+    probe_rows += rows_k
+    lap("21 K8 grid, K9 pair product (microbench_kernel_torch)")
+    shares = ceiling_report(nums, vpu["rates"], card_line)
+
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
         k: mmt["launches"][k] for k in ("fused_closest_hit", "fused_any_hit")},
@@ -1239,6 +1541,7 @@ def main() -> int:
             "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
             "library_ms": None,
         })
+    rows += probe_rows
 
     print(json.dumps({
         "card": card_line,
@@ -1256,6 +1559,8 @@ def main() -> int:
                      "fwd_bwd": b_train, "k6": k6, "k2_same_query": k2_same,
                      "flagship_steps_by_frac": frac_steps,
                      "t01": {"measures": t01, "dropped": t01_dropped}},
+        "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
+                   "k1_k6_shares": shares},
         "phase_s": lap.laps,
     }))
     print(json.dumps({"kernels": rows}))

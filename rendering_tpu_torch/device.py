@@ -1,9 +1,11 @@
-"""Device selection shared by the port's entry points, and the
-deterministic-algorithms mode of its train step and SSAA scatter."""
+"""Device selection shared by the port's entry points, the card's name
+and power limit for its measuring tools, and the deterministic-algorithms
+mode of its train step and SSAA scatter."""
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 
 import torch
 
@@ -20,6 +22,19 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch path on the CPU"
         )
     return torch.device("cuda")
+
+
+def describe_card() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them: every
+    time a tool reports stands beside them (a card capped below its
+    maximum power runs slower under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager

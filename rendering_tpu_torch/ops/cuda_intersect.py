@@ -48,16 +48,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import itertools
 import os
-import shutil
-import subprocess
 
 import numpy as np
 import torch
 
 from rendering_tpu_torch.ops.geometry import FLT_MAX as FMAX
+from rendering_tpu_torch.utils import nvcc
 
 RAY_TILE = 512              # rays per kernel CTA and per pre-pass tile
 SUB_PER_SUPER = 8           # cull chunks per super chunk
@@ -65,13 +63,7 @@ _PIECE = 64                 # the kernel stages triangles 64 at a time
 _PREPASS_ELEMS = 1 << 24    # bound on (tiles, 512, Cs) pre-pass temporaries
 _PLAIN_TILES = 64           # tiles per batch of the plain version
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG, "csrc", "mesh_intersect.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rendering_tpu_torch")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+SOURCE = os.path.join(nvcc.CSRC, "mesh_intersect.cu")
 
 
 @dataclasses.dataclass
@@ -501,41 +493,10 @@ def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
 _lib = None
 
 
-def _nvcc() -> str | None:
-    """Path of nvcc: on PATH, else the toolkit's default location."""
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    return path if os.path.exists(path) else None
-
-
-def build_library() -> tuple[str, str]:
-    """Compile csrc/mesh_intersect.cu with nvcc for sm_90a into
-    build/rendering_tpu_torch/ (named by the source's hash, so an edit
-    rebuilds). Returns (library path, compiler output). Raises when nvcc
-    is missing or the build fails."""
-    with open(_SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR,
-                        f"libmesh_intersect-{digest.hexdigest()[:12]}.so")
-    if os.path.exists(path):
-        return path, ""
-    nvcc = _nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
-                           "build rendering_tpu_torch's kernels")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {_SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
-
-
 def _library():
     global _lib
     if _lib is None:
-        path, _ = build_library()
+        path, _ = nvcc.build_library(SOURCE)
         lib = ctypes.CDLL(path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.rt_intersect.argtypes = [ptr] * 10 + [i32] * 11 + [ptr]

@@ -5,6 +5,10 @@ A timer on a CUDA device synchronizes the device before it reads the
 clock, so the phase's queued kernels are inside its time. It prints
 `<name> <ms> ms` when `enable_output` is set (the reference's
 `options::enableOutput`).
+
+`mean_ms` times a function over repeats: CUDA events on a card, the host
+clock on the CPU. Every time the port's tools and `chip_smoke.py` report
+comes from it.
 """
 
 from __future__ import annotations
@@ -34,3 +38,36 @@ class Timer:
         if self.enable_output:
             print(f"{self.name:<18}{self.elapsed_ms:.0f} ms")
         return self.elapsed_ms
+
+
+# ~2 ms of spinning at an H100's 1.98 GHz SM clock.
+PRIME_CYCLES = 4_000_000
+
+
+def mean_ms(fn, reps: int, device="cuda") -> float:
+    """Mean milliseconds of fn() over `reps` calls after one warm-up call.
+
+    On a card, by CUDA events, with a spin of ~2 ms (PRIME_CYCLES) queued
+    before the start event: the host has queued the timed launches before
+    the card reaches them, so the events time the launches back to back on
+    the device, not the host's launch rate (~20 us a call through ctypes,
+    more than a short kernel takes). A function that waits for the card
+    (a host sync inside) waits out the spin before the start event, so
+    the spin is never inside the time. On the CPU, the host clock: it
+    times PyTorch's CPU kernels, never a device."""
+    fn()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    torch.cuda._sleep(PRIME_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on a card, against their plain PyTorch
-versions. Each test skips without a CUDA device: a CUDA kernel has no
-CPU mode, and the CPU tests (tests/test_torch_intersect.py) hold the
-plain versions against the JAX package.
+versions. Each test that launches a kernel skips without a CUDA device:
+a CUDA kernel has no CPU mode, and the CPU tests
+(tests/test_torch_intersect.py) hold the plain versions against the JAX
+package. The control of K9's TF32 limits needs only plain versions and
+runs everywhere.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without JAX; there, skip the JAX-pinning conftest:
@@ -24,6 +26,7 @@ from rendering_tpu_torch.flagship import (
     procedural_mesh,
 )
 from rendering_tpu_torch.ops import cuda_intersect as ci
+from rendering_tpu_torch.ops import microbench as mb
 from rendering_tpu_torch.render.pipeline import quantize_u8, render_scene
 
 
@@ -317,3 +320,132 @@ def test_bouncing_render_on_card_matches_cpu(cuda, frac):
     d = np.abs(cpu_u8.numpy().astype(np.int16)
                - gpu_u8.cpu().numpy().astype(np.int16))[1:-1, 1:-1]
     assert (d > 1).mean() <= 0.006 and (d > 8).mean() <= 0.005
+
+
+def _bits_equal(a, b):
+    """f32 tensors equal bit for bit, NaN in the same places."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "unfused", "triton"])
+def test_fma_chain_kernel_matches_plain(cuda, route):
+    """K7 (both variants) and its Triton twin against the plain version,
+    bit for bit, on a ragged element count whose chains overflow (inf,
+    NaN), with the block repeated 3 times."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 2, (7, 300)).astype(np.float32))
+    kw = dict(inner=200, grid=3, n_chains=5)
+    name = f"fma_chain_{route}"
+    before = mb.KERNELS[name].launches
+    if route == "triton":
+        out = mb.fma_chain_triton(x.to(cuda), **kw)
+    else:
+        out = mb.fma_chain(x.to(cuda), fused=route == "fused", **kw)
+    torch.cuda.synchronize()
+    assert mb.KERNELS[name].launches == before + 1
+    want = mb.fma_chain_plain(x, inner=200, n_chains=5,
+                              fused=route != "unfused")
+    assert not bool(torch.isfinite(want).all())
+    assert _bits_equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [1, 4096])
+def test_grid_overhead_kernel_copies(cuda, n_steps):
+    x = torch.randn((8, 1024), device=cuda)
+    before = mb.KERNELS["grid_overhead"].launches
+    out = mb.grid_overhead(x, n_steps)
+    torch.cuda.synchronize()
+    assert mb.KERNELS["grid_overhead"].launches == before + 1
+    assert torch.equal(out, x)
+
+
+def _tf32_within(out, want, feats, coef, epilogue) -> bool:
+    """`out` within `mb.tf32_disagreement`'s limit of `want` (70 steps)."""
+    reading, limit = mb.tf32_disagreement(out, want, feats, coef,
+                                          n_steps=70, epilogue=epilogue)
+    return reading <= limit
+
+
+def _pair_inputs(k, epilogue, tc=32, br=256):
+    rng = np.random.default_rng(k)
+    coef = torch.from_numpy(rng.normal(size=(mb.N_TAB, 4 * tc, k))
+                            .astype(np.float32))
+    feats = torch.from_numpy(rng.normal(size=(k, br)).astype(np.float32))
+    o_init = torch.full((1, br), mb.T_NONE if epilogue else 0.0)
+    return feats, coef, o_init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("k", [13, 40])
+def test_pair_product_kernel_matches_plain(cuda, precision, epilogue, k):
+    """K9 against its plain version over 70 steps of 64 seeded normal
+    tables: bit-equal at highest; at default within the TF32 limits, which
+    the f32 kernel (highest) on the same inputs must fail."""
+    tc, br, n_steps = 32, 256, 70
+    feats, coef, o_init = _pair_inputs(k, epilogue, tc, br)
+    kw = dict(tc=tc, n_steps=n_steps, precision=precision, epilogue=epilogue)
+    name = mb.pair_name(precision, epilogue)
+    before = mb.KERNELS[name].launches
+    out = mb.pair_product(feats.to(cuda), coef.to(cuda), o_init.to(cuda),
+                          **kw).cpu()
+    assert mb.KERNELS[name].launches == before + 1
+    want = mb.pair_product_plain(feats, coef, o_init, **kw)
+    if precision == "highest":
+        assert _bits_equal(out, want)
+    else:
+        assert _tf32_within(out, want, feats, coef, epilogue)
+        f32 = mb.pair_product(feats.to(cuda), coef.to(cuda), o_init.to(cuda),
+                              **dict(kw, precision="highest")).cpu()
+        assert not _tf32_within(f32, want, feats, coef, epilogue)
+    if epilogue:
+        assert int((want < mb.T_NONE).sum()) > br // 2
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("k", [13, 40])
+def test_tf32_limits_reject_f32_and_truncation(epilogue, k, monkeypatch):
+    """K9's TF32 limits (mb.tf32_disagreement) tell a TF32 product from two
+    wrong ones: the f32 product and the product of inputs truncated to
+    TF32 fail; the same TF32 inputs summed in another order (each sum
+    exact in float64, rounded once) pass. Plain versions only, so it runs
+    without a card."""
+    feats, coef, o_init = _pair_inputs(k, epilogue)
+    kw = dict(tc=32, n_steps=70, epilogue=epilogue)
+    want = mb.pair_product_plain(feats, coef, o_init, precision="default",
+                                 **kw)
+    f32 = mb.pair_product_plain(feats, coef, o_init, precision="highest",
+                                **kw)
+    truncated = mb.pair_product_plain(mb.truncate_tf32(feats),
+                                      mb.truncate_tf32(coef), o_init,
+                                      precision="highest", **kw)
+    assert not _tf32_within(f32, want, feats, coef, epilogue)
+    assert not _tf32_within(truncated, want, feats, coef, epilogue)
+    monkeypatch.setattr(mb, "_products", lambda c, f: torch.einsum(
+        "nmk,kb->nmb", c.double(), f.double()).float())
+    reordered = mb.pair_product_plain(feats, coef, o_init,
+                                      precision="default", **kw)
+    assert not torch.equal(reordered, want)
+    assert _tf32_within(reordered, want, feats, coef, epilogue)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_pair_product_kernel_rejects_unsupported_tc(cuda, precision):
+    """A tc that is no multiple of the kernel's row group raises on the
+    card (no fall-back to the plain version) and launches nothing."""
+    tc, br, k = 12, 128, 13
+    coef = torch.ones((mb.N_TAB, 4 * tc, k), device=cuda)
+    feats = torch.ones((k, br), device=cuda)
+    o_init = torch.zeros((1, br), device=cuda)
+    before = {n: v.launches for n, v in mb.KERNELS.items()}
+    with pytest.raises(ValueError, match="multiple"):
+        mb.pair_product(feats, coef, o_init, tc=tc, n_steps=4,
+                        precision=precision)
+    assert before == {n: v.launches for n, v in mb.KERNELS.items()}

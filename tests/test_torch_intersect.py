@@ -23,6 +23,7 @@ import torch
 from rendering_tpu.flagship import build_flagship_scene as j_flagship
 from rendering_tpu.ops import pallas_intersect as jpi
 from rendering_tpu_torch.ops import cuda_intersect as ci
+from rendering_tpu_torch.utils import nvcc
 from torch_port_util import port_scene
 
 FMAX = 3.4028234663852886e38
@@ -223,10 +224,10 @@ def test_kernel_refuses_cpu_tensors(scenes):
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
-    monkeypatch.setattr(ci, "BUILD_DIR", str(tmp_path))
-    monkeypatch.setattr(ci, "_nvcc", lambda: None)
+    monkeypatch.setattr(nvcc, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(nvcc, "_nvcc", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc"):
-        ci.build_library()
+        nvcc.build_library(ci.SOURCE)
 
 
 def test_prepass_keeps_nan_slabs_live(scenes):
