@@ -76,7 +76,13 @@ of the tables):
     ray block and bounce, rays_casted equal to the JAX package's count,
     no path dropped; prints each bounce's time and live lanes and the
     peak memory, and times the frame; keeps the middle block's first
-    shadow query;
+    shadow query; then renders it once on each any-hit walk under
+    torch.profiler (tools/anyhit_walk_torch.py: the any-hit kernels'
+    device time per bounce, point+distant and area batch apart, and the
+    frame's idle share) and holds three of its shadow queries (bounce
+    0's middle point+distant and area queries, bounce 2's point+distant
+    one with the most live tile-super pairs) to the plain version and
+    the tile walk;
 15. whole-render parity at 384x216 with SSAA and the counters on, at
     anyhit_compact_frac 0 and 0.5, kernels vs plain versions; the two
     fracs' frames bit-equal;
@@ -110,6 +116,30 @@ pair test's product in f32 and TF32), through their two tools:
     F32_OPS_RATE and HBM_RATE, and each K1-K6 row's share of its
     operations bound at both rates.
 
+The any-hit walk (csrc/mesh_intersect.cu `anyhit_walk_kernel`, every
+any hit of every path) and the tile walk it replaced (`any_hit_tile_walk*`,
+launched only here):
+
+22. the seeded adversarial shadow queries of ops/shadow_cases.py
+    (interleaved pre-resolved lanes, rays leaving the mesh at the scene's
+    bias, rays grazing cull-box faces; tests/test_torch_anyhit_walk.py's
+    seeds and 2000-triangle mesh) at 262,144 rays: every single-mesh
+    any-hit variant on both walks against its plain version, 0
+    mismatches;
+23. a transparent 5k mesh beside an opaque 20k one (build_tiny_scene's
+    layout, SSAA and the counters on, 384x216): the shadow tables hold
+    only the opaque mesh, only the fused kernels with counters launch,
+    the kept fused any hit agrees with its plain version, and the whole
+    render equals the plain versions' in u8 and counters.
+
+Every any-hit query a phase holds to its plain version (phases 3, 7, 11,
+12, 13, 14, 16, 23) is also timed on both walks in turns (tile, packed,
+packed, tile; `ms` is the packed walk's, `tile_walk_ms` the tile walk's)
+with the work counts of the plain version (pairs, union_pairs,
+warp_pairs, packed_pairs, tile_union_max), the union and heaviest-tile
+bounds, and each walk's tile timeline (longest and mean tile, the tail
+from the 95th-percentile tile end, CTAs per SM, registers, spills).
+
 Each phase prints its duration. Every time comes from
 `utils.timer.mean_ms` (CUDA events, the launches queued behind a ~2 ms
 spin). Prints the card, a JSON line of the path numbers, a JSON line of
@@ -123,6 +153,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
@@ -156,6 +187,7 @@ HBM_RATE = 3.35e12      # H100 SXM bytes/s
 # x 1.98 GHz = 33.5e12/s, half the data sheet's 67 TFLOP/s (which counts
 # an FMA as two operations).
 F32_OPS_RATE = 67e12 / 2
+SMS = 132               # H100 SXM: one tile's bound is at 1/SMS of the rate
 # f32 instructions per ray-triangle pair in the kernels' inner loop
 # (csrc/mesh_intersect.cu): cross products p and q, 2 x (6 mul + 3 sub);
 # det, 3 mul + 2 add; tv, 3 sub; u, v and t, 3 x (4 mul + 2 add); u + v,
@@ -190,6 +222,12 @@ FMA_MAX_MISMATCH = 1e-4
 # lights with the 250k procedural mesh, at the flagship's resolution.
 TINY_PATHS = (("lights", 0, "intensity"), ("obj_color",), ("meshes", 0, "v"))
 FRACS = (0.25, 0.5)     # settings.anyhit_compact_frac of K6's runs
+# The adversarial shadow queries: full width, over the mesh of
+# tests/test_torch_anyhit_walk.py (the 2000-triangle flagship).
+ADVERSARIAL_RAYS = 1 << 18
+ADVERSARIAL_TRIS = 2000
+# The transparent-mesh scene's opaque and transparent meshes.
+TRANSPARENT_SCENE_TRIS = (20_000, 5_000)
 # tests/test_golden.py's t01_simple_shapes limits (SCENE_TOL, SCENE_MAD):
 # interior u8 fractions off by > 1 and > 8, neighbourhood violations,
 # and the mean |diff|. Copied: that file imports the JAX package.
@@ -341,12 +379,30 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
     """Times of the kernel, its plain version and the pre-pass on a
     prepared query of the main path, and the kernel's bound from this
     query's work. Also checks the kernel against its plain version on the
-    whole query."""
+    whole query. An any hit is timed against the tile walk it replaced,
+    in turns (tile, packed, packed, tile; `ms` the packed walk's mean,
+    `tile_walk_ms` the tile walk's), which must agree with the plain
+    version too; its row adds the work counts (union_pairs, warp_pairs,
+    packed_pairs, tile_union_max), the union and heaviest-tile bounds,
+    and both walks' tile timelines and resources."""
     kw = flags(ci, name)
-    ms = mean_ms(lambda: launch(ci, tables, prep, bfc, **kw), reps=20)
-    plain_ms = mean_ms(lambda: plain(ci, tables, prep, bfc, **kw), reps=1)
     stats: dict = {}
     out_p = plain(ci, tables, prep, bfc, stats, **kw)
+    walk = None
+    if kw["anyhit"]:
+        walk = tool("anyhit_walk_torch").walk_ab(name, tables, prep, bfc,
+                                                 out_p)
+        ab = walk["ab_ms"]
+        print(f"A/B {name} ({prep.n_rays} rays): tile walk {ab[0]:.5f}, "
+              f"packed walk {ab[1]:.5f}, {ab[2]:.5f}, tile walk {ab[3]:.5f} "
+              f"ms (packed walk at as many CTAs per SM as fit "
+              f"{walk['packed_fit_ms']:.5f} ms); tiles: tile walk "
+              f"{json.dumps(walk['tile_timeline'])}, packed walk "
+              f"{json.dumps(walk['packed_timeline'])}")
+        ms = walk["ms"]
+    else:
+        ms = mean_ms(lambda: launch(ci, tables, prep, bfc, **kw), reps=20)
+    plain_ms = mean_ms(lambda: plain(ci, tables, prep, bfc, **kw), reps=1)
     out_k = launch(ci, tables, prep, bfc, **kw)
     if not same(out_k, out_p):
         raise AssertionError(f"{name} disagrees with its plain "
@@ -367,7 +423,7 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
     if kw["root_filter"]:
         ops += stats["accepts"] * SLAB_OPS
     ops_ms = ops / F32_OPS_RATE * 1e3
-    return {
+    out = {
         "rays": prep.n_rays, "pairs": stats["pairs"],
         "accepts": stats["accepts"], "ms": ms,
         "plain_ms": plain_ms, "prepass_ms": prepass_ms,
@@ -375,6 +431,15 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "ops": ops, "bytes_ms": bytes_ms,
     }
+    if walk is not None:
+        out.update({k: stats[k] for k in ("union_pairs", "warp_pairs",
+                                          "packed_pairs", "tile_union_max")})
+        out["union_bound_ms"] = (stats["union_pairs"] * OPS_PER_PAIR
+                                 / F32_OPS_RATE * 1e3)
+        out["tile_bound_ms"] = (stats["tile_union_max"] * OPS_PER_PAIR
+                                / (F32_OPS_RATE / SMS) * 1e3)
+        out.update(walk)
+    return out
 
 
 @contextlib.contextmanager
@@ -652,6 +717,7 @@ def two_phase_numbers(ci, tb, ro3, rd3, t_limit, frac: float, bfc) -> dict:
         "resolved_in_phase1": int(occ1.sum()), "phases": phases,
         "ms": sum(p["ms"] for p in phases),
         "plain_ms": sum(p["plain_ms"] for p in phases),
+        "tile_walk_ms": sum(p["tile_walk_ms"] for p in phases),
         "bound_ms": sum(p["bound_ms"] for p in phases),
         "bound_by": ("operations" if all(p["bound_by"] == "operations"
                                          for p in phases) else "bytes"),
@@ -852,8 +918,9 @@ def sass_counts(path: str) -> dict:
     return counts
 
 
+@functools.cache
 def tool(name: str):
-    """tools/<name>.py as a module."""
+    """tools/<name>.py as a module (loaded once)."""
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tools", f"{name}.py"))
@@ -1075,6 +1142,133 @@ def ceiling_report(nums: dict, rates: dict, card_line: str) -> dict:
               f"F32_OPS_RATE ({sheet / n['ms']:.2%}), {meas:.5f} ms at the "
               f"measured rate ({meas / n['ms']:.2%})")
     return shares
+
+
+def adversarial_phase(ci, tb, bfc, bias) -> dict:
+    """The seeded adversarial shadow queries of ops/shadow_cases.py at
+    ADVERSARIAL_RAYS rays over the tables tb (the seeds and mesh of
+    tests/test_torch_anyhit_walk.py, which holds the same queries at
+    1536 rays to the Pallas kernel): every single-mesh any-hit variant
+    on both walks against its plain version, 0 mismatches (ids, t bits,
+    counters)."""
+    from rendering_tpu_torch.ops import shadow_cases as sc
+
+    aw = tool("anyhit_walk_torch")
+    out = {}
+    for kind in sc.KINDS:
+        ro, rd, tl = (torch.from_numpy(x).cuda() for x in sc.shadow_case(
+            tb, kind, ADVERSARIAL_RAYS, sc.SEEDS[kind], bias=bias))
+        prep = ci.prepare(tb, ro, rd, tl)
+        for name in ("any_hit", "any_hit_stats", "any_hit_rootfilter",
+                     "any_hit_rootfilter_stats"):
+            ref = plain(ci, tb, prep, bfc, **flags(ci, name))
+            for walk in ("packed", "tile"):
+                got = aw.run_walk(name, walk, tb, prep, bfc)
+                mis = sum(int((a.view(torch.int32) != b.view(torch.int32))
+                              .sum()) if a.dtype == torch.float32
+                          else int((a != b).sum()) for a, b in zip(got, ref))
+                out[f"{kind} {name} {walk}"] = mis
+        occluded = int((ref[1] >= 0).sum())
+        print(f"adversarial {kind}: {ADVERSARIAL_RAYS} rays, "
+              f"{int((tl < 0).sum())} entering resolved, {occluded} "
+              f"occluded; mismatches (ids, t bits, counters) "
+              f"{ {k: v for k, v in out.items() if k.startswith(kind)} }")
+    if any(out.values()):
+        raise AssertionError("an any-hit walk disagrees with its plain "
+                             "version on an adversarial query")
+    return out
+
+
+def transparent_mesh_scene(w, h):
+    """build_tiny_scene's layout with its glass sphere replaced by a
+    transparent procedural mesh beside the opaque one
+    (TRANSPARENT_SCENE_TRIS), SSAA and the counters on: two meshes, so
+    fused tables, and shadow tables that must leave the transparent mesh
+    out."""
+    from rendering_tpu_torch.flagship import procedural_mesh
+    from rendering_tpu_torch.models.parser import (
+        LightDef,
+        ObjectDef,
+        SceneDef,
+    )
+    from rendering_tpu_torch.models.scene import build_scene
+    from rendering_tpu_torch.models.settings import RenderSettings
+
+    sd = SceneDef(settings=RenderSettings(
+        width=w, height=h, max_ray_depth=4, enable_ssaa=True,
+        collect_statistics=True, enable_output=False, output_progress=False,
+        background_color=(0.2, 0.25, 0.3)))
+    sd.lights = [
+        LightDef("point", color=(1, 0.9, 0.8), intensity=0.7, pos=(0, 2, -1)),
+        LightDef("distant", color=(1, 1, 1), intensity=0.3,
+                 dir=(0.2, -1, -0.4)),
+        LightDef("area", color=(1, 1, 1), intensity=40.0, pos=(0, 3, -3),
+                 i=(1.5, 0, 0), j=(0, 0, 1.5), samples=2),
+    ]
+    opaque = ObjectDef("mesh", pos=(0.8, 0.1, -3), size=(1.4, 1.4, 1.4),
+                       color=(1, 1, 1), material="phong", ambient=0.4,
+                       diffuse=0.1, specular=0.7, n_specular=10.0)
+    n_opaque, n_glass = TRANSPARENT_SCENE_TRIS
+    opaque.mesh = procedural_mesh(n_opaque, pos=(0.8, 0.1, -3),
+                                  size=(1.4, 1.4, 1.4))
+    glass = ObjectDef("mesh", pos=(-1.0, 0, -2.5), size=(1.2, 1.2, 1.2),
+                      color=(1, 1, 1), material="transparent", ior=1.4)
+    glass.mesh = procedural_mesh(n_glass, pos=(-1.0, 0, -2.5),
+                                 size=(1.2, 1.2, 1.2), seed=3)
+    sd.objects = [
+        ObjectDef("plane", pos=(0, -1.5, 0), normal=(0, 1, 0),
+                  color=(0.85, 0.85, 0.85)),
+        opaque, glass,
+        ObjectDef("sphere", pos=(-0.2, 0.8, -4), radius=0.8, color=(1, 1, 1),
+                  material="reflective"),
+        ObjectDef("sphere", pos=(1.8, -0.6, -2.2), radius=0.4,
+                  color=(0.9, 0.3, 0.2)),
+    ]
+    return build_scene(sd, device="cuda")
+
+
+def transparent_phase(ci) -> dict:
+    """A transparent mesh on the card: the shadow tables hold only the
+    opaque mesh, the render launches only the fused kernels with the
+    counters, the kept fused any-hit query agrees with its plain version
+    on both walks (`kernel_numbers`), and the whole render at PARITY_WH
+    equals the plain versions' in u8 and counters."""
+    from rendering_tpu_torch.render.pipeline import render_scene
+
+    scene = transparent_mesh_scene(*PARITY_WH)
+    ft, fts = scene.fused_itables, scene.fused_shadow_itables
+    shadow_mids = sorted(int(x) for x in torch.unique(fts.idmap[0]))
+    all_mids = sorted(int(x) for x in torch.unique(ft.idmap[0]))
+    opaque_supers = -(-math.ceil(TRANSPARENT_SCENE_TRIS[0] / fts.geo.tri_chunk)
+                      // ci.SUB_PER_SUPER)
+    print(f"transparent mesh scene {PARITY_WH[0]}x{PARITY_WH[1]}: fused "
+          f"tables of meshes {all_mids} ({ft.geo.sbox.shape[0]} supers), "
+          f"shadow tables of meshes {shadow_mids} ({fts.geo.sbox.shape[0]} "
+          f"supers; the opaque mesh alone has {opaque_supers})")
+    if (fts is ft or len(all_mids) != 2 or len(shadow_mids) != 1
+            or fts.geo.sbox.shape[0] != opaque_supers):
+        raise AssertionError("the shadow tables do not leave the transparent "
+                             "mesh out")
+    kept: dict = {}
+    counts: dict = {}
+    bfc = scene.static.settings.use_backface_culling
+    with torch.no_grad(), keep_block(ci, 0, kept), counted(ci, counts):
+        render_scene(scene)
+    launched = {k for k, n in counts.items() if n}
+    print(f"transparent mesh render launches: "
+          f"{ {k: counts[k] for k in sorted(launched)} }")
+    if launched != {"fused_closest_hit_stats", "fused_any_hit_stats"}:
+        raise AssertionError("the transparent mesh scene launched other "
+                             "kernels than the fused ones with counters")
+    err = check_parity(ci, "fused_any_hit_stats", *kept[True], bfc)
+    nums = kernel_numbers(ci, "fused_any_hit_stats", *kept[True], bfc)
+    print(f"fused_any_hit_stats (transparent mesh scene): {json.dumps(nums)}")
+    _, stats = whole_render_parity(ci, transparent_mesh_scene,
+                                    "transparent mesh, SSAA, "
+                                    "collectStatistics=1")
+    return {"launches": {k: counts[k] for k in launched},
+            "shadow_meshes": shadow_mids, "max_abs_err": err,
+            "fused_any_hit_stats": nums, "stats": stats}
 
 
 def main() -> int:
@@ -1377,6 +1571,22 @@ def main() -> int:
           f"{b_frame_ms:.3f} ms (CUDA events, mean of 2 after 1 warm-up) on "
           f"{card_line}")
     del b_frame
+    # The frame's any hits on each walk, by bounce and batch, and three
+    # of its shadow queries against the tile walk.
+    aw = tool("anyhit_walk_torch")
+    anyhit_frames = {}
+    for walk in ("tile", "packed"):
+        kept_b = dict(aw.bouncing_keep(n_blocks))
+        anyhit_frames[walk] = aw.frame_anyhit_ms(tiny, walk, kept_b)
+        print(f"bouncing frame, every any hit on the {walk} walk: "
+              f"{json.dumps(anyhit_frames[walk])} on {card_line}")
+    aw.heaviest_bounce2(kept_b, n_blocks)
+    b_queries = {}
+    for key in ("bounce0_point_distant", "bounce0_area",
+                "bounce2_point_distant"):
+        b_queries[key] = kernel_numbers(ci, "any_hit", *kept_b[key], bfc)
+        print(f"any_hit, bouncing {key}: {json.dumps(b_queries[key])}")
+    del kept_b
     lap("14 bouncing frame")
 
     # ---- 15. bouncing whole-render parity, single pass and K6 ---------------
@@ -1423,8 +1633,7 @@ def main() -> int:
           for frac in FRACS}
     for frac, n in k6.items():
         print(f"any_hit_two_phase frac={frac}: {json.dumps(n)}")
-    k2_same = kernel_numbers(ci, "any_hit", tb,
-                             ci.prepare(tb, ro3, rd3, t_lim), bfc)
+    k2_same = dict(b_queries["bounce0_point_distant"])  # the same query
     k2_same["call_ms"] = mean_ms(lambda: ci.any_hit(
         tb, ro3, rd3, t_lim, backface_culling=bfc), reps=5)
     print(f"any_hit (single pass) on the same query: {json.dumps(k2_same)}")
@@ -1525,6 +1734,18 @@ def main() -> int:
     lap("21 K8 grid, K9 pair product (microbench_kernel_torch)")
     shares = ceiling_report(nums, vpu["rates"], card_line)
 
+    # ---- 22. adversarial shadow queries on both any-hit walks ---------------
+    adv = build_flagship_scene(64, 32, n_tris=ADVERSARIAL_TRIS)
+    adversarial = adversarial_phase(
+        ci, adv.meshes[0].itables, adv.static.settings.use_backface_culling,
+        bias=adv.static.settings.bias)
+    del adv
+    lap("22 adversarial shadow queries")
+
+    # ---- 23. a transparent mesh beside an opaque one --------------------------
+    transparent = transparent_phase(ci)
+    lap("23 transparent mesh")
+
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
         k: mmt["launches"][k] for k in ("fused_closest_hit", "fused_any_hit")},
@@ -1533,14 +1754,17 @@ def main() -> int:
         launches.update(run["launches"])
     rows = []
     for name, n in nums.items():
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces(name),
             "launches": launches[name], "max_abs_err": err[name],
             "ms": n["ms"], "plain_ms": n["plain_ms"],
             "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
             "library_ms": None,
-        })
+        }
+        if "tile_walk_ms" in n:  # an any hit: the walk it replaced
+            row["tile_walk_ms"] = n["tile_walk_ms"]
+        rows.append(row)
     rows += probe_rows
 
     print(json.dumps({
@@ -1557,6 +1781,8 @@ def main() -> int:
         "bouncing": {"frame_ms": b_frame_ms, "stats": b_stats,
                      "peak_bytes": b_peak, "bounces": bounces,
                      "fwd_bwd": b_train, "k6": k6, "k2_same_query": k2_same,
+                     "anyhit_frames": anyhit_frames, "anyhit_queries": b_queries,
+                     "adversarial": adversarial, "transparent": transparent,
                      "flagship_steps_by_frac": frac_steps,
                      "t01": {"measures": t01, "dropped": t01_dropped}},
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],

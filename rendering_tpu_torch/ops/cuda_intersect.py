@@ -22,7 +22,14 @@ They are bound by f32 operations (57 instructions per ray-triangle pair,
 each issued alone under -fmad=false; the tables are only ~16 MB at 250k
 triangles), so the design keeps triangle rows in shared memory for a
 whole 512-ray tile, culls sub-chunks against each ray's running t, and
-skips resolved rays. The source file's header says more.
+skips resolved rays. Closest hits run the tile walk (one CTA per tile);
+every any hit runs the any-hit walk, which evaluates the same pairs with
+the unresolved rays packed into the lowest lanes, a persistent grid of
+one CTA per SM that takes the tiles heaviest first (`tile_order`), and
+its row staging overlapped with compute. The any hit of the tile walk
+(`*_tile_walk*` in `KERNELS`) stays only to be timed against it. The
+source file's header says more; `intersect_plain`'s stats count the work
+each walk issues.
 
 Pipeline of one query (`closest_hit` / `any_hit`):
 
@@ -61,7 +68,16 @@ RAY_TILE = 512              # rays per kernel CTA and per pre-pass tile
 SUB_PER_SUPER = 8           # cull chunks per super chunk
 _PIECE = 64                 # the kernel stages triangles 64 at a time
 _PREPASS_ELEMS = 1 << 24    # bound on (tiles, 512, Cs) pre-pass temporaries
-_PLAIN_TILES = 64           # tiles per batch of the plain version
+_PLAIN_TILES = 64           # tiles per batch of the plain version on the CPU
+# On a card the plain version's time is its Python loop (~30 launches per
+# visit rank and sub-chunk), so it batches as many tiles as keep each
+# (tiles, tc, 512) temporary at 2^24 elements.
+_PLAIN_ELEMS_CUDA = 1 << 24
+# The any-hit walk's persistent grid: one CTA per SM, so the heaviest
+# tiles, which set the kernel's time, run alone on their SMs (on an H100
+# every kept query took 0.65-0.95x the time of two CTAs per SM, as many
+# as fit; PERF.md).
+WALK_CTAS_PER_SM = 1
 
 SOURCE = os.path.join(nvcc.CSRC, "mesh_intersect.cu")
 
@@ -417,10 +433,22 @@ def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
     (t (Rp,), tri (Rp,) int32) in padded chunk-space ids; with
     `collect_stats` also the K3 counters box_tests and tri_tests (int64
     0-d tensors). A `stats` dict receives the work that bounds the
-    kernel: "pairs", the ray-triangle pairs the per-ray cull requires
-    (= tri_tests), and "accepts", the pairs Moller-Trumbore accepts
-    below the ray's t at the block's start (where the kernel runs the
-    root filter's slab)."""
+    kernel, summed over the steps (tile, super, sub-chunk) whose
+    sub-chunk is tile-live, each counted at the sub-chunk's start:
+      "pairs": the ray-triangle pairs the per-ray cull requires
+        (= tri_tests);
+      "union_pairs": the tile's unresolved rays (t >= 0) x tc, what the
+        TPU formulation evaluates and the least an exact kernel must;
+      "warp_pairs": 32 x tc x the 32-lane warps (lanes in tile order)
+        holding an unresolved ray, the lane-slots the tile walk issues;
+      "packed_pairs": the same over the warps of the any-hit walk, whose
+        rays unresolved at the super's start sit packed in the lowest
+        lanes (a stable compaction);
+      "tile_union_max": the largest union_pairs of one tile (a tile runs
+        on one CTA, so its pairs bound the kernel's time from below);
+      "accepts": the pairs Moller-Trumbore accepts below the ray's t at
+        the block's start (where the kernel runs the root filter's
+        slab)."""
     n_tiles = prep.n_tiles
     tc, n_sub = tb.tri_chunk, tb.n_sub
     cs = tb.sbox.shape[0]
@@ -434,9 +462,12 @@ def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
     boxes_tab = tb.cbox.reshape(cs, n_sub, 8)
     rows = torch.arange(tc, dtype=torch.int32, device=dev)[None, :, None]
     count = collect_stats or stats is not None
-    pairs = accepts = 0
-    for s in range(0, n_tiles, _PLAIN_TILES):
-        tiles = torch.arange(s, min(s + _PLAIN_TILES, n_tiles), device=dev)
+    pairs = accepts = union = warp = packed = 0
+    tile_union = torch.zeros((n_tiles,), dtype=torch.int64, device=dev)
+    step = (_PLAIN_TILES if dev.type == "cpu"
+            else max(1, _PLAIN_ELEMS_CUDA // (tc * RAY_TILE)))
+    for s in range(0, n_tiles, step):
+        tiles = torch.arange(s, min(s + step, n_tiles), device=dev)
         counts = prep.counts[tiles]
         for k in range(int(counts.max()) if len(tiles) else 0):
             idx = tiles[counts > k]
@@ -446,6 +477,9 @@ def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
             ctmin, ctmax = _slab(boxes, ray[:, 0:3], ray[:, 6:9])
             invalid = (boxes[:, :, 0] > boxes[:, :, 3])[:, None, :]
             live0 = ~((ctmin > ctmax) | (ctmax < 0) | invalid)  # (m, BR, n_sub)
+            if stats is not None:  # the any-hit walk's lane of each ray
+                held = ~(t_all[idx] < 0)
+                slot = torch.cumsum(held, dim=1) - 1
             for j in range(n_sub):
                 t_run = t_all[idx]
                 live = live0[:, :, j] & ~((ctmin[:, :, j] >= t_run)
@@ -457,6 +491,18 @@ def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
                     continue
                 sel, sup_j, ray_j = idx[go], sup[go], ray[go]
                 t_prev = t_run[go]
+                if stats is not None:
+                    unres = t_prev >= 0
+                    union += int(unres.sum()) * tc
+                    tile_union[sel] += unres.sum(dim=1) * tc  # sel: distinct tiles
+                    warp += int(unres.reshape(-1, RAY_TILE // 32, 32)
+                                .any(dim=2).sum()) * 32 * tc
+                    wid = torch.where(unres & held[go], slot[go] // 32,
+                                      RAY_TILE // 32)
+                    busy = torch.zeros((wid.shape[0], RAY_TILE // 32 + 1),
+                                       dtype=torch.bool, device=dev)
+                    busy.scatter_(1, wid, True)
+                    packed += int(busy[:, :-1].sum()) * 32 * tc
                 tri_j = tri_tab[sup_j, 0:n_rows, j]
                 t, ok = _mt_block(tri_j, ray_j, backface_culling)
                 ok = ok & (t < t_prev[:, None, :])
@@ -478,8 +524,12 @@ def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
                 t_all[sel] = torch.where(better, t_min, t_prev)
                 tri_all[sel] = torch.where(better, base + row, tri_all[sel])
     if stats is not None:
-        stats["pairs"] = stats.get("pairs", 0) + pairs
-        stats["accepts"] = stats.get("accepts", 0) + accepts
+        for key, n in (("pairs", pairs), ("union_pairs", union),
+                       ("warp_pairs", warp), ("packed_pairs", packed),
+                       ("accepts", accepts)):
+            stats[key] = stats.get(key, 0) + n
+        heaviest = int(tile_union.max()) if n_tiles else 0
+        stats["tile_union_max"] = max(stats.get("tile_union_max", 0), heaviest)
     out = (t_all.reshape(-1), tri_all.reshape(-1))
     if not collect_stats:
         return out
@@ -499,20 +549,35 @@ def _library():
         path, _ = nvcc.build_library(SOURCE)
         lib = ctypes.CDLL(path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rt_intersect.argtypes = [ptr] * 10 + [i32] * 11 + [ptr]
+        lib.rt_intersect.argtypes = [ptr] * 13 + [i32] * 12 + [ptr]
         lib.rt_intersect.restype = ctypes.c_int
+        lib.rt_anyhit_tile_walk.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+        lib.rt_anyhit_tile_walk.restype = ctypes.c_int
+        lib.rt_anyhit_resources.argtypes = [i32] * 3 + [ptr]
+        lib.rt_anyhit_resources.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+def tile_order(counts: torch.Tensor) -> torch.Tensor:
+    """The any-hit walk's tile schedule: tiles by live-super count,
+    heaviest first, ties in tile order (a stable sort on the device; no
+    host sync). Tiles are independent, so the order changes no result."""
+    return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
+
+
 @dataclasses.dataclass
 class CudaKernel:
-    """One variant of csrc/mesh_intersect.cu's kernel: closest or any
+    """One variant of csrc/mesh_intersect.cu's kernels: closest or any
     hit, over one mesh's tables or fused ones (the fused closest hit
     remaps through the idmap), with or without the root filter (K4) and
-    the counters (K3). `launches` counts the launches made through it."""
+    the counters (K3). An any hit launches the any-hit walk
+    (`anyhit_walk_kernel`); `tile_walk` marks the any hit as the tile walk
+    it replaced, which no render, train or CLI path launches (it stays to
+    be timed against the any-hit walk). `launches` counts the launches
+    made through it."""
 
     name: str
     anyhit: bool
@@ -520,14 +585,21 @@ class CudaKernel:
     root_filter: bool
     collect_stats: bool
     two_phase: bool = False
+    tile_walk: bool = False
     launches: int = 0
 
     def __call__(self, tb: IntersectTables, prep: Prepared, *,
-                 backface_culling: bool, idmap: torch.Tensor | None = None):
+                 backface_culling: bool, idmap: torch.Tensor | None = None,
+                 timing: torch.Tensor | None = None,
+                 ctas_per_sm: int = WALK_CTAS_PER_SM):
         """Raw (t (Rp,), tri (Rp,) int32) in padded chunk-space ids; the
         fused closest hit returns (t, mid, vid) through idmap instead,
         with t = FMAX, mid = -1 and vid = 0 on a miss. With the counters
-        the tuple ends in box_tests, tri_tests (int64 0-d tensors)."""
+        the tuple ends in box_tests, tri_tests (int64 0-d tensors).
+        `timing`, an any hit's (n_tiles, 3) int64 CUDA tensor, receives
+        each tile's [start ns, end ns, SM id] (the kernel's TIMING
+        variant). `ctas_per_sm` sets the any-hit walk's grid (0: as many
+        as fit), for measuring it against the constant."""
         remap = self.fused and not self.anyhit
         aux = prep.aux
         checks = [("tri", tb.tri, torch.float32),
@@ -539,6 +611,10 @@ class CudaKernel:
             if idmap is None:
                 raise ValueError(f"{self.name}: needs the fused idmap")
             checks.append(("idmap", idmap, torch.int32))
+        if timing is not None:
+            if not self.anyhit:
+                raise ValueError(f"{self.name}: only an any hit records tiles")
+            checks.append(("timing", timing, torch.int64))
         for name, x, dt in checks:
             if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
                 raise ValueError(f"{self.name}: {name} must be a contiguous "
@@ -547,11 +623,16 @@ class CudaKernel:
         if tb.tri_chunk % _PIECE:
             raise ValueError(f"{self.name}: tri_chunk must be a multiple of "
                              f"{_PIECE}, got {tb.tri_chunk}")
+        if self.anyhit and tb.tri.data_ptr() % 16:
+            raise ValueError(f"{self.name}: tri must be 16-byte aligned")
         cs = tb.sbox.shape[0]
         n_pad = cs * tb.n_sub * tb.tri_chunk
         if remap and tuple(idmap.shape) != (2, n_pad):
             raise ValueError(f"{self.name}: idmap must be (2, {n_pad}), got "
                              f"{tuple(idmap.shape)}")
+        if timing is not None and tuple(timing.shape) != (prep.n_tiles, 3):
+            raise ValueError(f"{self.name}: timing must be ({prep.n_tiles}, "
+                             f"3), got {tuple(timing.shape)}")
         lib = _library()
         rp = aux.shape[1]
         dev = aux.device
@@ -565,16 +646,29 @@ class CudaKernel:
             return None if x is None else x.data_ptr()
 
         with torch.cuda.device(dev):  # launch on the tensors' card
-            rc = lib.rt_intersect(
-                tb.tri.data_ptr(), tb.cbox.data_ptr(), aux.data_ptr(),
-                prep.torder.data_ptr(), prep.counts.data_ptr(),
-                ptr(idmap if remap else None), outs[0].data_ptr(),
-                outs[1].data_ptr(), ptr(outs[2] if remap else None),
-                ptr(counters), prep.n_tiles, rp, cs, tb.n_sub, tb.tri_chunk,
-                n_pad, int(backface_culling), int(self.anyhit), int(remap),
-                int(self.root_filter), int(self.collect_stats),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if self.tile_walk:
+                rc = lib.rt_anyhit_tile_walk(
+                    tb.tri.data_ptr(), tb.cbox.data_ptr(), aux.data_ptr(),
+                    prep.torder.data_ptr(), prep.counts.data_ptr(),
+                    ptr(timing), outs[0].data_ptr(), outs[1].data_ptr(),
+                    ptr(counters), prep.n_tiles, rp, cs, tb.n_sub,
+                    tb.tri_chunk, int(backface_culling),
+                    int(self.root_filter), int(self.collect_stats), stream)
+            else:
+                order = tile_order(prep.counts) if self.anyhit else None
+                work = (torch.zeros((1,), dtype=torch.int32, device=dev)
+                        if self.anyhit else None)
+                rc = lib.rt_intersect(
+                    tb.tri.data_ptr(), tb.cbox.data_ptr(), aux.data_ptr(),
+                    prep.torder.data_ptr(), prep.counts.data_ptr(),
+                    ptr(idmap if remap else None), ptr(order), ptr(work),
+                    ptr(timing), outs[0].data_ptr(), outs[1].data_ptr(),
+                    ptr(outs[2] if remap else None), ptr(counters),
+                    prep.n_tiles, rp, cs, tb.n_sub, tb.tri_chunk, n_pad,
+                    int(backface_culling), int(self.anyhit), int(remap),
+                    int(self.root_filter), int(self.collect_stats),
+                    ctas_per_sm, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: "
                                f"{lib.rt_error_string(rc).decode()}")
@@ -585,12 +679,15 @@ class CudaKernel:
 
 
 def variant_name(*, anyhit: bool, fused: bool, root_filter: bool,
-                 collect_stats: bool, two_phase: bool = False) -> str:
+                 collect_stats: bool, two_phase: bool = False,
+                 tile_walk: bool = False) -> str:
     """A variant's name: closest_hit / any_hit, "fused_" before it,
-    "_two_phase" (K6), "_rootfilter" and "_stats" after it."""
+    "_two_phase" (K6), "_tile_walk", "_rootfilter" and "_stats" after
+    it."""
     return (("fused_" if fused else "") + ("any_hit" if anyhit else
                                            "closest_hit")
             + ("_two_phase" if two_phase else "")
+            + ("_tile_walk" if tile_walk else "")
             + ("_rootfilter" if root_filter else "")
             + ("_stats" if collect_stats else ""))
 
@@ -599,19 +696,37 @@ _FLAGS = ("anyhit", "fused", "root_filter", "collect_stats")
 # Every variant, by name. The fused any hit is the any-hit walk over the
 # fused tables, counted apart from the single-mesh one; so are the two
 # launches of each two-phase shadow query (K6, `any_hit_two_phase`),
-# which run the single-mesh any hit over super ranges of the tables.
+# which run the single-mesh any hit over super ranges of the tables, and
+# the tile walk's any hit (`any_hit_tile_walk*`).
 KERNELS = {
     variant_name(**kw): CudaKernel(variant_name(**kw), **kw)
     for kw in [dict(zip(_FLAGS, flags))
                for flags in itertools.product((False, True), repeat=4)]
     + [dict(anyhit=True, fused=False, root_filter=rf, collect_stats=cs,
-            two_phase=True)
+            **{mode: True})
+       for mode in ("two_phase", "tile_walk")
        for rf, cs in itertools.product((False, True), repeat=2)]
 }
 closest_hit_kernel = KERNELS["closest_hit"]
 any_hit_kernel = KERNELS["any_hit"]
 fused_closest_hit_kernel = KERNELS["fused_closest_hit"]
 fused_any_hit_kernel = KERNELS["fused_any_hit"]
+
+
+def anyhit_resources(*, tile_walk: bool, root_filter: bool,
+                     collect_stats: bool) -> dict:
+    """An any-hit kernel's resources on the current card: resident CTAs
+    per SM at 512 threads (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and local (spill) bytes per thread, static shared bytes,
+    and the card's SM count."""
+    out = (ctypes.c_int * 5)()
+    rc = _library().rt_anyhit_resources(int(not tile_walk), int(root_filter),
+                                        int(collect_stats), out)
+    if rc != 0:
+        raise RuntimeError(f"rt_anyhit_resources failed: "
+                           f"{_library().rt_error_string(rc).decode()}")
+    return dict(zip(("ctas_per_sm", "registers", "local_bytes",
+                     "shared_bytes", "sms"), out))
 
 
 def _check_device(prep: Prepared) -> None:

@@ -27,6 +27,7 @@ from rendering_tpu_torch.flagship import (
 )
 from rendering_tpu_torch.ops import cuda_intersect as ci
 from rendering_tpu_torch.ops import microbench as mb
+from rendering_tpu_torch.ops import shadow_cases
 from rendering_tpu_torch.render.pipeline import quantize_u8, render_scene
 
 
@@ -228,6 +229,62 @@ def test_fused_rootfilter_stats_kernel_matches_plain(cuda, anyhit):
     assert torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32))
     for a, b in zip(out_k[1:], out_p[1:]):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("root_filter,collect_stats",
+                         [(False, False), (True, True)])
+@pytest.mark.parametrize("kind", shadow_cases.KINDS)
+def test_anyhit_walks_match_plain_on_adversarial_queries(
+        cuda, kind, root_filter, collect_stats):
+    """The any-hit walk and the tile walk it replaced against the plain
+    version on the seeded adversarial shadow queries (interleaved
+    pre-resolved lanes, rays leaving the mesh at the scene's bias, rays
+    grazing cull-box faces) over a clipped mesh: t bit-equal, ids and
+    counters equal."""
+    v, reach = _clipped(20_000, pos=(-0.1, 0, -0.6))
+    tb = ci.build_intersect_tables(v, tri_chunk=64, reach=reach).to(cuda)
+    ro, rd, tl = (torch.from_numpy(x).to(cuda) for x in shadow_cases.shadow_case(
+        tb, kind, 8 * 512 + 77, shadow_cases.SEEDS[kind]))
+    prep = ci.prepare(tb, ro, rd, tl)
+    flags = dict(anyhit=True, fused=False, root_filter=root_filter,
+                 collect_stats=collect_stats)
+    out_p = ci.intersect_plain(tb, prep, anyhit=True, backface_culling=True,
+                               root_filter=root_filter,
+                               collect_stats=collect_stats)
+    assert int((out_p[1] >= 0).sum()) > 20
+    for tile_walk in (False, True):
+        kernel = ci.KERNELS[ci.variant_name(**flags, tile_walk=tile_walk)]
+        out_k = kernel(tb, prep, backface_culling=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out_k[0].view(torch.int32),
+                           out_p[0].view(torch.int32))
+        for a, b in zip(out_k[1:], out_p[1:]):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_walk", [False, True])
+def test_anyhit_walk_records_every_tile(cuda, tile_walk):
+    """The TIMING variants record each tile once: end >= start, an SM id
+    below the card's SM count, and the results of the untimed launch."""
+    scene = build_flagship_scene(128, 64, n_tris=20_000, device=cuda)
+    tb = scene.meshes[0].itables
+    ro, rd, tl = (x.to(cuda) for x in _rays(8 * 512 + 77, seed=6))
+    prep = ci.prepare(tb, ro, rd, tl)
+    kernel = ci.KERNELS["any_hit_tile_walk" if tile_walk else "any_hit"]
+    timing = torch.zeros((prep.n_tiles, 3), dtype=torch.int64, device=cuda)
+    timed = kernel(tb, prep, backface_culling=True, timing=timing)
+    plain = kernel(tb, prep, backface_culling=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(timed, plain))
+    t = timing.cpu()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (t[:, 0] > 0).all() and (t[:, 1] >= t[:, 0]).all()
+    assert (t[:, 2] >= 0).all() and (t[:, 2] < sms).all()
+    res = ci.anyhit_resources(tile_walk=tile_walk, root_filter=False,
+                              collect_stats=False)
+    assert res["ctas_per_sm"] >= 1 and res["sms"] == sms
 
 
 @pytest.mark.cuda
