@@ -105,16 +105,23 @@ pair test's product in f32 and TF32), through their two tools:
     before it; holds each K7 route against its plain version on one full
     (256, 1024) block at INNER 4096 (bit-equal; the fused routes may
     differ on at most FMA_MAX_MISMATCH of the values);
-21. runs tools/microbench_kernel_torch.py's measurement (K8 at 1, 16384
-    and 4096 CTAs; K9 at the JAX tool's eleven configurations and the four
-    epilogue ones at TF32) likewise; holds K8 against a copy and every K9
-    configuration against its plain version on seeded normal data
-    (highest bit-equal, default within the TF32 limits, which must reject
-    an f32 product and inputs truncated to TF32); times the plain
-    versions, x.clone() (K8's library time) and torch.bmm on the 64
-    tables (K9's); then prints the measured f32 and HBM rates beside
-    F32_OPS_RATE and HBM_RATE, and each K1-K6 row's share of its
-    operations bound at both rates.
+21. runs tools/microbench_kernel_torch.py's measurement (K8's two forms,
+    a CTA per step and the loop of one CTA per SM, at 1, 16384 and 4096
+    steps; a one-CTA launch beside x.clone(), y.copy_(x) and torch.neg;
+    K9's two forms at the JAX tool's eleven configurations and the four
+    epilogue ones at TF32) likewise; holds both K8 forms against a copy,
+    K9's packing pass and recurrence against their plain versions (bit
+    for bit) and both K9 forms at every configuration against the plain
+    version on seeded normal data (highest bit-equal, default within the
+    TF32 limits, which must reject an f32 product and inputs truncated to
+    TF32); prints A/B lines at the first configuration (the first form,
+    the second twice, the first again, by mean_ms) and the SASS of both
+    forms (instructions and shared loads per product term in the k loop,
+    the epilogue's instructions per pair); times the plain versions,
+    x.clone() (K8's library time) and torch.bmm on the 64 tables (K9's);
+    then prints the measured f32 and HBM rates beside F32_OPS_RATE and
+    HBM_RATE, and each K1-K6 row's share of its operations bound at both
+    rates.
 
 The any-hit walk (csrc/mesh_intersect.cu `anyhit_walk_kernel`, every
 any hit of every path) and the tile walk it replaced (`any_hit_tile_walk*`,
@@ -213,7 +220,6 @@ TPU_FMA = "tools/microbench_vpu.py:65"
 TPU_GRID = "tools/microbench_kernel.py:61"
 TPU_MATMUL = "tools/microbench_kernel.py:127"
 F32_FLOPS_RATE = 67e12      # H100 SXM f32, an FMA counted as 2 FLOPs
-TF32_FLOPS_RATE = 495e12    # H100 SXM TF32 tensor cores, dense
 # K7's fused variant and its Triton twin should equal the plain version bit
 # for bit, as the unfused variant must; at most this share of the values
 # may differ (a contraction placed otherwise).
@@ -872,9 +878,9 @@ def replaces(name: str) -> str:
     or K1/K2."""
     if name.startswith("fma_chain"):
         return TPU_FMA
-    if name == "grid_overhead":
+    if name.startswith("grid_overhead"):
         return TPU_GRID
-    if name.startswith("pair_product"):
+    if name.startswith("pair_"):  # K9 and its packing and recurrence passes
         return TPU_MATMUL
     if "two_phase" in name:
         return TPU_TWO_PHASE
@@ -885,11 +891,17 @@ def replaces(name: str) -> str:
     return TPU_FUSED if name.startswith("fused") else TPU_KERNEL
 
 
+SASS_OPS = ("FFMA", "FMUL", "FADD", "HMMA", "HGMMA", "LDS", "MUFU")
+
+
 def sass_counts(path: str) -> dict:
-    """f32 and tensor-core instructions of each kernel in a built library,
-    counted in its SASS (cuobjdump -sass): shows that nvcc kept the
-    probes' arithmetic (every product row of K9, both K7 variants).
-    Empty where the toolkit has no cuobjdump."""
+    """f32, tensor-core, shared-load and MUFU instructions of each kernel in
+    a built library, counted in its SASS (cuobjdump -sass): shows that
+    nvcc kept the probes' arithmetic (every product row of K9, both K7
+    variants). Per kernel also its instruction count (`total`) and, in its
+    basic block with the most FMULs (K9's k loop: one FMUL a product
+    term), the instructions and shared loads per term (`loop_per_term`,
+    `loop_lds_per_term`). Empty where the toolkit has no cuobjdump."""
     import re
 
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -897,7 +909,7 @@ def sass_counts(path: str) -> dict:
         return {}
     sass = subprocess.run([exe, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
-    counts: dict = {}
+    instrs: dict = {}   # per kernel: (address, text) of each instruction
     fn = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -910,11 +922,35 @@ def sass_counts(path: str) -> dict:
                                       name[d.end() + len(ident):])
                     fn = f"{ident}<{','.join(args)}>"  # fma_chain_kernel<1,6>
                     break
-            counts[fn] = dict.fromkeys(("FFMA", "FMUL", "FADD", "HMMA"), 0)
-        elif fn is not None:
-            for op in counts[fn]:
-                if re.search(rf"\b{op}\b", line):
-                    counts[fn][op] += 1
+            instrs[fn] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([A-Z@].*)", line)
+        if fn is not None and m:
+            instrs[fn].append((int(m.group(1), 16), m.group(2)))
+    counts: dict = {}
+    for fn, code in instrs.items():
+        c = counts[fn] = {**dict.fromkeys(SASS_OPS, 0), "total": len(code)}
+        # Basic blocks start at branch targets and after branches.
+        leaders = {int(t, 16) for _, text in code
+                   for t in re.findall(r"\bBRA\b.*?0x([0-9a-f]+)", text)}
+        blocks, prev_branch = [], True
+        for addr, text in code:
+            if prev_branch or addr in leaders:
+                blocks.append([0, 0, 0, 0])   # instructions, FMUL, FADD, LDS
+            prev_branch = bool(re.search(r"\b(BRA|EXIT|RET)\b", text))
+            blocks[-1][0] += 1
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}(\.\S+)?\b", text):
+                    c[op] += 1
+            blocks[-1][1] += bool(re.search(r"\bFMUL\b", text))
+            blocks[-1][2] += bool(re.search(r"\bFADD\b", text))
+            blocks[-1][3] += bool(re.search(r"\bLDS(\.\S+)?\b", text))
+        # The k loop: the block with the most multiply-add pairs.
+        total, fmul, _, lds = max(blocks, key=lambda b: min(b[1], b[2]),
+                                  default=(0, 0, 0, 0))
+        if fmul:
+            c.update(loop_terms=fmul, loop_per_term=total / fmul,
+                     loop_lds_per_term=lds / fmul)
     return counts
 
 
@@ -1007,47 +1043,56 @@ def pair_inputs(tc, br, k, epilogue, seed):
     return feats, coef, o_init
 
 
-def pair_parity(mb, cfg, n_steps, seed) -> float:
-    """K9 at one configuration against its plain version on seeded data:
-    bit-equal at highest; at default within the TF32 limits, which must
-    reject the f32 product and truncated TF32 inputs. Returns the max
-    |difference|."""
+def pair_parity(mb, cfg, n_steps, seed) -> dict:
+    """K9's two forms at one configuration against the plain version on
+    seeded data: bit-equal at highest; at default within the TF32 limits,
+    which must reject the f32 product and truncated TF32 inputs (checked
+    in every run). Returns the max |difference| of each form."""
     tc, br, k, precision, epilogue = cfg
     feats, coef, o_init = pair_inputs(tc, br, k, epilogue, seed)
     kw = dict(tc=tc, n_steps=n_steps, precision=precision, epilogue=epilogue)
-    out = mb.pair_product(feats, coef, o_init, **kw)
     ref = mb.pair_product_plain(feats, coef, o_init, **kw)
-    mis, err = chain_mismatch(out, ref)
-    what = f"parity {mb.pair_name(precision, epilogue)} tc={tc} br={br} k={k}"
-    accepted = ""
-    if epilogue:
-        accepted = (f"; accepted lanes kernel {int((out < 3.0e38).sum())}, "
-                    f"plain {int((ref < 3.0e38).sum())} of {br}")
-    if precision == "highest":
-        print(f"{what}: {mis} values differ (bit-equal required){accepted}")
-        if mis:
-            raise AssertionError(f"{what}: kernel and plain version disagree")
-        return err
-    f32 = dict(kw, precision="highest")
-    controls = {
-        "f32 product": mb.pair_product_plain(feats, coef, o_init, **f32),
-        "truncated inputs": mb.pair_product_plain(
-            mb.truncate_tf32(feats), mb.truncate_tf32(coef), o_init, **f32)}
     how = dict(n_steps=n_steps, epilogue=epilogue)
-    reading, limit = mb.tf32_disagreement(out, ref, feats, coef, **how)
-    ctl = {name: mb.tf32_disagreement(c, ref, feats, coef, **how)[0]
-           for name, c in controls.items()}
-    measure = (f"share of columns outside rtol {mb.TF32_T_RTOL}" if epilogue
-               else "max |diff| / (2 max sum |products|)")
-    print(f"{what}: {measure} {reading:.3e} (limit {limit:g}); controls "
-          + ", ".join(f"{n} {v:.3e}" for n, v in ctl.items()) + accepted)
-    if reading > limit:
-        raise AssertionError(f"{what}: kernel and plain version disagree")
-    for name, v in ctl.items():
-        if v <= limit:
-            raise AssertionError(f"{what}: the TF32 limit does not reject "
-                                 f"the {name}")
-    return err
+    ctl = {}
+    if precision == "default":
+        f32 = dict(kw, precision="highest")
+        controls = {
+            "f32 product": mb.pair_product_plain(feats, coef, o_init, **f32),
+            "truncated inputs": mb.pair_product_plain(
+                mb.truncate_tf32(feats), mb.truncate_tf32(coef), o_init,
+                **f32)}
+        ctl = {name: mb.tf32_disagreement(c, ref, feats, coef, **how)[0]
+               for name, c in controls.items()}
+    errs = {}
+    for version in mb.VERSIONS:
+        out = mb.pair_product(feats, coef, o_init, version=version, **kw)
+        mis, err = chain_mismatch(out, ref)
+        name = mb.pair_name(precision, epilogue, version)
+        what = f"parity {name} tc={tc} br={br} k={k}"
+        accepted = ""
+        if epilogue:
+            accepted = (f"; accepted lanes kernel {int((out < 3.0e38).sum())}"
+                        f", plain {int((ref < 3.0e38).sum())} of {br}")
+        errs[name] = err
+        if precision == "highest":
+            print(f"{what}: {mis} values differ (bit-equal required)"
+                  f"{accepted}")
+            if mis:
+                raise AssertionError(f"{what}: kernel and plain version "
+                                     f"disagree")
+            continue
+        reading, limit = mb.tf32_disagreement(out, ref, feats, coef, **how)
+        measure = (f"share of columns outside rtol {mb.TF32_T_RTOL}"
+                   if epilogue else "max |diff| / (2 max sum |products|)")
+        print(f"{what}: {measure} {reading:.3e} (limit {limit:g}); controls "
+              + ", ".join(f"{n} {v:.3e}" for n, v in ctl.items()) + accepted)
+        if reading > limit:
+            raise AssertionError(f"{what}: kernel and plain version disagree")
+        for cname, v in ctl.items():
+            if v <= limit:
+                raise AssertionError(f"{what}: the TF32 limit does not "
+                                     f"reject the {cname}")
+    return errs
 
 
 def bmm_ms(coef, feats, n_steps, tf32: bool) -> float:
@@ -1063,61 +1108,148 @@ def bmm_ms(coef, feats, n_steps, tf32: bool) -> float:
     return ms * n_steps / coef.shape[0]
 
 
-def kernel_probe_phase(ci, mb, card_line) -> tuple[list, dict]:
-    """tools/microbench_kernel_torch.py's measurement (K8 at 1, 16384 and
-    4096 CTAs; K9 at every configuration) with the launch counts at 0
-    before it; then K8 against a copy and every K9 configuration against
-    its plain version, and each kernel's numbers at the JAX tool's first
-    configuration (tc 256, br 1024, k 13)."""
+def pair_ab(mb, feats, coef, o_init, **kw) -> dict:
+    """K9's first form against its second at one configuration, in turns
+    (v1, new, new, v1), by mean_ms: one run, one card."""
+    fns = {v: mb.pair_product_fn(feats, coef, o_init, version=v, **kw)
+           for v in mb.VERSIONS}
+    order = (1, 2, 2, 1)
+    times = [mean_ms(fns[v], reps=10) for v in order]
+    ab = {"v1_ms": [times[0], times[3]], "new_ms": [times[1], times[2]]}
+    print(f"A/B {mb.pair_name(kw['precision'], kw['epilogue'])} (v1, new, "
+          f"new, v1): " + ", ".join(f"{t:.5f}" for t in times) + " ms")
+    return ab
+
+
+def kernel_probe_phase(ci, mb, card_line, sass: dict) -> tuple[list, dict]:
+    """tools/microbench_kernel_torch.py's measurement (K8's two forms at 1,
+    16384 and 4096 steps; the launch probe; K9's two forms at every
+    configuration) with the launch counts at 0 before it; then K8 against
+    a copy, the packing and recurrence passes and both K9 forms at every
+    configuration against their plain versions, A/B lines at the JAX
+    tool's first configuration (tc 256, br 1024, k 13), each kernel's
+    numbers there, and the SASS of both K9 forms."""
     ktool = tool("microbench_kernel_torch")
     counts: dict = {}
     with counted(ci, counts):
         raw = ktool.measure("cuda")
-    expect = {"grid_overhead": len(ktool.GRID_STEPS) * (ktool.REPS + 1)}
-    for _, _, _, p, e in ktool.CONFIGS:
-        name = mb.pair_name(p, e)
-        expect[name] = expect.get(name, 0) + ktool.REPS + 1
-    check_launches(counts, expect, "tools/microbench_kernel_torch.py")
+    check_launches(counts, ktool.expected_launches(),
+                   "tools/microbench_kernel_torch.py")
     summary = ktool.summary(raw, card_line)
     print(f"microbench_kernel_torch: {json.dumps(summary)}")
+    launch = summary["launch"]
+    print(f"one-CTA launch against x.clone() (device ms): empty "
+          f"{launch['empty_ctas_ms']:.5f} (loop form "
+          f"{launch['empty_loop_ms']:.5f}), with the copy "
+          f"{launch['copy_ctas_ms']:.5f}; x.clone() {launch['clone_ms']:.5f},"
+          f" y.copy_(x) {launch['copy__ms']:.5f}, torch.neg "
+          f"{launch['torch_neg_ms']:.5f}; host us per call: ctypes "
+          f"{launch['host_us_copy_ctas']:.2f}, clone "
+          f"{launch['host_us_clone']:.2f}")
+    print(f"K8 per further CTA {summary['per_cta_ns']:.4f} ns, per loop step "
+          f"{summary['per_step_ns']:.4f} ns")
 
     x = torch.randn((8, ktool.BR), device="cuda")
-    for n in ktool.GRID_STEPS:
-        if not torch.equal(mb.grid_overhead(x, n), x):
-            raise AssertionError(f"grid_overhead at {n} CTAs is no copy")
-    print(f"parity grid_overhead at {ktool.GRID_STEPS} CTAs: equal to x")
+    for form in (mb.grid_overhead, mb.grid_overhead_loop):
+        for n in ktool.GRID_STEPS:
+            if not torch.equal(form(x, n), x):
+                raise AssertionError(f"{form.__name__} at {n} steps is no "
+                                     f"copy")
+    print(f"parity grid_overhead, grid_overhead_loop at {ktool.GRID_STEPS} "
+          f"steps: equal to x")
     steps = max(ktool.GRID_STEPS)
-    rows = [probe_row(
-        "grid_overhead", PROBE_SOURCE, counts["grid_overhead"], 0.0,
-        summary["grid_ms"][steps],
-        mean_ms(lambda: mb.grid_overhead_plain(x, steps), reps=20), 0.0,
-        ktool.grid_bytes(ktool.BR) / HBM_RATE * 1e3,
-        mean_ms(lambda: x.clone(), reps=20))]
+    grid_plain = mean_ms(lambda: mb.grid_overhead_plain(x, steps), reps=20)
+    clone_ms = mean_ms(lambda: x.clone(), reps=20)
+    bytes_ms = ktool.grid_bytes(ktool.BR) / HBM_RATE * 1e3
+    rows = [probe_row(name, PROBE_SOURCE, counts[name], 0.0, ms[steps],
+                      grid_plain, 0.0, bytes_ms, clone_ms)
+            for name, ms in (("grid_overhead", summary["grid_ms"]),
+                             ("grid_overhead_loop", summary["grid_loop_ms"]))]
 
     errs: dict = {}
     for i, cfg in enumerate(ktool.CONFIGS):
-        name = mb.pair_name(cfg[3], cfg[4])
-        err = pair_parity(mb, cfg, ktool.N_STEPS, seed=i)
-        errs[name] = max(errs.get(name, 0.0), err)
-    for r in raw["pair"]:
-        if (r["tc"], r["br"], r["k"]) != (256, 1024, 13):
-            continue
-        name = mb.pair_name(r["precision"], r["epilogue"])
-        feats, coef, o_init = ktool.tool_inputs(
-            tc=256, br=1024, k=13, epilogue=r["epilogue"], device="cuda")
-        plain_ms = mean_ms(lambda: mb.pair_product_plain(
-            feats, coef, o_init, tc=256, n_steps=r["n_steps"],
-            precision=r["precision"], epilogue=r["epilogue"]), reps=1)
-        rate = (TF32_FLOPS_RATE if r["precision"] == "default"
-                else F32_FLOPS_RATE)
-        rows.append(probe_row(
-            name, PROBE_SOURCE, counts[name], errs[name], r["ms"], plain_ms,
-            r["flops"] / rate * 1e3, r["bytes"] / HBM_RATE * 1e3,
-            bmm_ms(coef, feats, r["n_steps"], r["precision"] == "default")))
+        for name, err in pair_parity(mb, cfg, ktool.N_STEPS, seed=i).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    tc, br, k = 256, 1024, 13   # the JAX tool's first configuration
+    n_steps = ktool.N_STEPS
+    feats, coef, _ = pair_inputs(tc, br, k, False, seed=99)
+    packed = mb.pack_tables(coef, tc)
+    pack_ref = mb.pack_tables_plain(coef, tc)
+    if not torch.equal(packed.view(torch.int32), pack_ref.view(torch.int32)):
+        raise AssertionError("pair_pack_tf32 disagrees with its plain version")
+    scratch = torch.randn((n_steps, br), device="cuda")
+    o0 = torch.randn((1, br), device="cuda")
+    rec = mb.pair_recurrence(scratch, o0.clone())
+    mis, rec_err = chain_mismatch(rec, mb.pair_recurrence_plain(scratch, o0))
+    if mis:
+        raise AssertionError("pair_recurrence disagrees with its plain "
+                             "version")
+    print(f"parity pair_pack_tf32 (tc {tc}, k {k}, 64 tables): bit-equal; "
+          f"pair_recurrence ({n_steps} steps x {br}): bit-equal")
+    kp = mb.padded_k(k)
+    rows.append(probe_row(
+        "pair_pack_tf32", PROBE_SOURCE, counts["pair_pack_tf32"], 0.0,
+        mean_ms(lambda: mb.pack_tables(coef, tc), reps=20),
+        mean_ms(lambda: mb.pack_tables_plain(coef, tc), reps=5), 0.0,
+        4 * coef.shape[0] * 4 * tc * (k + kp) / HBM_RATE * 1e3, None))
+    rows.append(probe_row(
+        "pair_recurrence", PROBE_SOURCE, counts["pair_recurrence"], rec_err,
+        mean_ms(lambda: mb.pair_recurrence(scratch, o0.clone()), reps=20),
+        mean_ms(lambda: mb.pair_recurrence_plain(scratch, o0), reps=1),
+        2 * n_steps * br / F32_OPS_RATE * 1e3,
+        4 * (n_steps * br + 2 * br) / HBM_RATE * 1e3, None))
+
+    ab: dict = {}
+    for precision in mb.PRECISIONS:
+        for epilogue in (False, True):
+            feats, coef, o_init = ktool.tool_inputs(
+                tc=tc, br=br, k=k, epilogue=epilogue, device="cuda")
+            kw = dict(tc=tc, n_steps=n_steps, precision=precision,
+                      epilogue=epilogue)
+            ab[mb.pair_name(precision, epilogue)] = pair_ab(
+                mb, feats, coef, o_init, **kw)
+            plain_ms = mean_ms(lambda: mb.pair_product_plain(
+                feats, coef, o_init, **kw), reps=1)
+            lib_ms = bmm_ms(coef, feats, n_steps, precision == "default")
+            for key in ("pair", "pair_v1"):
+                r = next(r for r in raw[key] if (
+                    r["tc"], r["br"], r["k"], r["precision"], r["epilogue"])
+                    == (tc, br, k, precision, epilogue))
+                name = mb.pair_name(precision, epilogue, r["version"])
+                rows.append(probe_row(
+                    name, PROBE_SOURCE, counts[name], errs[name], r["ms"],
+                    plain_ms, r["ops_ms"], r["bytes_ms"], lib_ms))
+                print(f"{name}: {r['ms']:.5f} ms; bound {r['bound_ms']:.5f} "
+                      f"ms (product {r['product_ms']:.5f}, epilogue "
+                      f"{r['epilogue_ms']:.5f}, f32 without FMA "
+                      f"{r['nofma_ms']}); plain {plain_ms:.3f} ms; torch.bmm "
+                      f"{lib_ms:.3f} ms")
     print("library_ms: torch.bmm over the 64 tables for K9; x.clone() for K8 "
-          "(its function; the probe itself measures launch and per-CTA "
-          "cost); none for K7 (no PyTorch call computes an FMA chain)")
-    return rows, {"summary": summary}
+          "(its function; the probe itself measures launch and per-CTA or "
+          "per-step cost); none for K7 (no PyTorch call computes an FMA "
+          "chain), the packing pass or the recurrence")
+
+    k9_sass = {}
+    for fn, c in sass.items():
+        if fn and fn.startswith(("pair_simt", "pair_tf32", "pair_wgmma")):
+            k9_sass[fn] = c
+    for pair in (("pair_simt_kernel<1>", "pair_simt_kernel<0>", 16),
+                 ("pair_wgmma_kernel<1,4,16>", "pair_wgmma_kernel<0,4,16>",
+                  16),
+                 ("pair_simt_v1_kernel<1>", "pair_simt_v1_kernel<0>", 8)):
+        epi, plain_fn, unrolled = pair
+        if epi in sass and plain_fn in sass:
+            extra = (sass[epi]["total"] - sass[plain_fn]["total"]) / unrolled
+            k9_sass[epi]["epilogue_sass_per_pair"] = extra
+            print(f"sass {epi}: {extra:.1f} instructions per (row, column) "
+                  f"pair beyond {plain_fn} (EPILOGUE_OPS {mb.EPILOGUE_OPS})")
+    for fn, c in sorted(k9_sass.items()):
+        if fn.startswith("pair_simt") and "loop_per_term" in c:
+            print(f"sass {fn}: k loop {c['loop_per_term']:.3f} instructions "
+                  f"and {c['loop_lds_per_term']:.3f} shared loads per "
+                  f"product term ({c['loop_terms']} terms a block)")
+    return rows, {"summary": summary, "ab": ab, "sass": k9_sass}
 
 
 def ceiling_report(nums: dict, rates: dict, card_line: str) -> dict:
@@ -1302,7 +1434,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print("  ptxas:", line.strip())
     print(f"built the kernels in {time.perf_counter() - t0:.1f} s")
-    for fn, n in sass_counts(built[1][0]).items():
+    probe_sass = sass_counts(built[1][0])
+    for fn, n in probe_sass.items():
         print(f"  sass {fn}: {n}")
 
     t0 = time.perf_counter()
@@ -1729,7 +1862,7 @@ def main() -> int:
     # ---- 20-21. the hardware-ceiling probes (K7-K9) through their tools ------
     probe_rows, vpu = fma_phase(ci, mb, card_line)
     lap("20 K7 f32 rates, HBM (microbench_vpu_torch)")
-    rows_k, kprobe = kernel_probe_phase(ci, mb, card_line)
+    rows_k, kprobe = kernel_probe_phase(ci, mb, card_line, probe_sass)
     probe_rows += rows_k
     lap("21 K8 grid, K9 pair product (microbench_kernel_torch)")
     shares = ceiling_report(nums, vpu["rates"], card_line)
@@ -1786,6 +1919,7 @@ def main() -> int:
                      "flagship_steps_by_frac": frac_steps,
                      "t01": {"measures": t01, "dropped": t01_dropped}},
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
+                   "k9_ab": kprobe["ab"], "k9_sass": kprobe["sass"],
                    "k1_k6_shares": shares},
         "phase_s": lap.laps,
     }))

@@ -1,7 +1,15 @@
 """The hardware-ceiling probes: hand-written CUDA kernels for the f32
-issue rate with and without FMA (K7), the per-CTA cost of a grid (K8)
-and the pair test's product in f32 and TF32 (K9), a Triton twin of K7,
-and the plain PyTorch version of each.
+issue rate with and without FMA (K7), the cost of a grid's CTAs and of
+its steps (K8) and the pair test's product in f32 and TF32 (K9), a
+Triton twin of K7, and the plain PyTorch version of each.
+
+K8 and K9 have two forms (csrc/microbench.cu): the first carried the TPU
+grid over as one CTA per step (`grid_overhead`, `pair_product(...,
+version=1)`), the second takes the steps as a loop inside persistent CTAs
+(`grid_overhead_loop`, `pair_product`, whose TF32 form first packs the
+tables with `pack_tables`). The first forms stay as the baseline that
+chip_smoke.py and tools/microbench_kernel_torch.py measure the second
+against.
 
 They replace the Pallas probes of the JAX package's tools
 (`tools/microbench_vpu.py::_fma_bench`, `tools/microbench_kernel.py`'s
@@ -38,9 +46,14 @@ T_NONE = 3.0e38             # K9's "no accepted t"
 PRECISIONS = ("highest", "default")
 MAX_CHAINS = 8              # csrc/microbench.cu kMaxChains
 MAX_K = 128                 # csrc/microbench.cu kMaxK
-# csrc/microbench.cu: (row group, column tile) of the SIMT (highest) and
-# tensor-core (default) pair kernels; tc and br must be multiples.
-PAIR_TILES = {"highest": (8, 128), "default": (16, 64)}
+VERSIONS = (2, 1)           # K9's forms: the second, then the first
+# csrc/microbench.cu: (row group, column tile) of each form's SIMT
+# (highest) and tensor-core (default) pair kernels; tc and br must be
+# multiples. The second form's: kSimtChunk x kSimtCols, and kWgN x the
+# wgmma kernel's widest column tile (4 warpgroups x 64 columns).
+PAIR_TILES = {(2, "highest"): (32, 128), (2, "default"): (32, 256),
+              (1, "highest"): (8, 128), (1, "default"): (16, 64)}
+WG_ROWS = 32                # csrc/microbench.cu kWgN: a packed chunk's rows
 # K9 at default precision against its plain version (tf32_disagreement).
 TF32_SUM_TOL = 1e-6
 TF32_T_RTOL = 1e-3
@@ -57,14 +70,19 @@ class Launches:
     launches: int = 0
 
 
-def pair_name(precision: str, epilogue: bool) -> str:
-    return f"pair_product_{precision}" + ("_epilogue" if epilogue else "")
+def pair_name(precision: str, epilogue: bool, version: int = 2) -> str:
+    """K9's launch count: `pair_product_<precision>[_epilogue]` for the
+    second form, `pair_product_v1_...` for the first."""
+    return ("pair_product_" + ("v1_" if version == 1 else "") + precision
+            + ("_epilogue" if epilogue else ""))
 
 
 KERNELS = {name: Launches(name) for name in (
     "fma_chain_fused", "fma_chain_unfused", "fma_chain_triton",
-    "grid_overhead",
-    *(pair_name(p, e) for e in (False, True) for p in PRECISIONS))}
+    "grid_overhead", "grid_overhead_loop", "pair_pack_tf32",
+    "pair_recurrence",
+    *(pair_name(p, e, v) for v in VERSIONS for e in (False, True)
+      for p in PRECISIONS))}
 
 _lib = None
 
@@ -76,10 +94,15 @@ def _library():
         lib = ctypes.CDLL(path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mb_grid_overhead.argtypes = [ptr, ptr, i32, i32, ptr]
+        lib.mb_grid_overhead_loop.argtypes = [ptr, ptr, i32, i32, ptr]
         lib.mb_fma_chain.argtypes = [ptr, ptr] + [i32] * 5 + [ptr]
-        lib.mb_pair_product.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
-        for fn in (lib.mb_grid_overhead, lib.mb_fma_chain,
-                   lib.mb_pair_product):
+        lib.mb_pack_tables.argtypes = [ptr, ptr] + [i32] * 3 + [ptr]
+        lib.mb_pair_product.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+        lib.mb_pair_product_v1.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        lib.mb_pair_recurrence.argtypes = [ptr, ptr, i32, i32, ptr]
+        for fn in (lib.mb_grid_overhead, lib.mb_grid_overhead_loop,
+                   lib.mb_fma_chain, lib.mb_pack_tables, lib.mb_pair_product,
+                   lib.mb_pair_recurrence, lib.mb_pair_product_v1):
             fn.restype = ctypes.c_int
         lib.mb_error_string.argtypes = [ctypes.c_int]
         lib.mb_error_string.restype = ctypes.c_char_p
@@ -203,25 +226,47 @@ def fma_chain_triton(x: torch.Tensor, *, inner: int = INNER,
     return out
 
 
-# ---- K8: the grid's per-CTA cost -------------------------------------------
+# ---- K8: the grid's per-CTA and per-step cost --------------------------------
+
+def _check_grid(x: torch.Tensor, n_steps: int, what: str) -> None:
+    _check("x", x)
+    if n_steps < 1:
+        raise ValueError(f"{what}: n_steps must be >= 1, got {n_steps}")
+
 
 def grid_overhead_plain(x: torch.Tensor, n_steps: int) -> torch.Tensor:
-    """K8's function: the block copied (every other step does nothing)."""
+    """K8's function: the block copied (every other step does nothing).
+    Both forms compute it."""
     return x.clone()
 
 
 def grid_overhead(x: torch.Tensor, n_steps: int) -> torch.Tensor:
-    """K8 (csrc/microbench.cu grid_overhead_kernel): one launch of n_steps
-    CTAs, CTA 0 copying x. n_steps = 1 is the empty grid."""
-    _check("x", x)
-    if n_steps < 1:
-        raise ValueError(f"grid_overhead: n_steps must be >= 1, got {n_steps}")
+    """K8's first form (csrc/microbench.cu grid_overhead_kernel): one
+    launch of n_steps CTAs, CTA 0 copying x. n_steps = 1 is the empty
+    grid; it measures the block scheduler's cost per CTA."""
+    _check_grid(x, n_steps, "grid_overhead")
     if not x.is_cuda:
         return grid_overhead_plain(x, n_steps)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         _launch("grid_overhead", _library().mb_grid_overhead, x.data_ptr(),
                 out.data_ptr(), x.numel(), n_steps)
+    return out
+
+
+def grid_overhead_loop(x: torch.Tensor, n_steps: int) -> torch.Tensor:
+    """K8 in the TPU probe's form (csrc/microbench.cu
+    grid_overhead_loop_kernel): one launch of min(n_steps, SMs) CTAs that
+    take the n_steps steps in turn, each step ending at a barrier, the CTA
+    holding step 0 copying x; it measures the cost of a step of a loop
+    inside the block."""
+    _check_grid(x, n_steps, "grid_overhead_loop")
+    if not x.is_cuda:
+        return grid_overhead_plain(x, n_steps)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _launch("grid_overhead_loop", _library().mb_grid_overhead_loop,
+                x.data_ptr(), out.data_ptr(), x.numel(), n_steps)
     return out
 
 
@@ -311,9 +356,98 @@ def pair_product_plain(feats: torch.Tensor, coef: torch.Tensor,
     return o[None]
 
 
+def padded_k(k: int) -> int:
+    """kp: k rounded up to a multiple of 8, the TF32 wgmma's depth."""
+    return (k + 7) // 8 * 8
+
+
+def _check_pack(coef: torch.Tensor, tc: int) -> None:
+    _check("coef", coef)
+    if coef.dim() != 3 or coef.shape[1] != 4 * tc:
+        raise ValueError(f"pack_tables: coef must be (n_tab, 4 tc, k) with tc "
+                         f"= {tc}, got {tuple(coef.shape)}")
+    n_tab, _, k = coef.shape
+    if n_tab < 1 or tc < WG_ROWS or tc % WG_ROWS or not 1 <= k <= MAX_K:
+        raise ValueError(f"pack_tables needs a table, tc a multiple of "
+                         f"{WG_ROWS} and 1 <= k <= {MAX_K}; got n_tab={n_tab}, "
+                         f"tc={tc}, k={k}")
+
+
+def packed_rows(tc: int, device=None) -> torch.Tensor:
+    """The table row of each packed row: chunks of WG_ROWS rows of each of
+    the four tc-row blocks in turn (chunk c holds rows c WG_ROWS ..
+    c WG_ROWS + WG_ROWS - 1 of det, tdet, udet and vdet)."""
+    q = torch.arange(4 * tc, device=device)
+    chunk, w = q // (4 * WG_ROWS), q % (4 * WG_ROWS)
+    return (w // WG_ROWS) * tc + chunk * WG_ROWS + w % WG_ROWS
+
+
+def pack_tables_plain(coef: torch.Tensor, tc: int) -> torch.Tensor:
+    """K9's packing pass (csrc/microbench.cu pack_tf32_kernel): each table
+    (4 tc, k) rounded to TF32 (`to_tf32`), zero-padded to kp =
+    `padded_k(k)`, its rows in `packed_rows` order, and written as wgmma's
+    K-major image without swizzle: core matrices of 8 rows x 4 values,
+    ordered by row group, then by k / 4. Returns (n_tab, 4 tc * kp)."""
+    _check_pack(coef, tc)
+    n_tab, rows, k = coef.shape
+    kp = padded_k(k)
+    padded = torch.zeros((n_tab, rows, kp), dtype=coef.dtype,
+                         device=coef.device)
+    padded[:, :, :k] = to_tf32(coef)
+    t = padded[:, packed_rows(tc, coef.device)]
+    t = t.reshape(n_tab, rows // 8, 8, kp // 4, 4).permute(0, 1, 3, 2, 4)
+    return t.reshape(n_tab, rows * kp).contiguous()
+
+
+def pack_tables(coef: torch.Tensor, tc: int) -> torch.Tensor:
+    """`pack_tables_plain` by the packing kernel on a card (one launch,
+    counted as `pair_pack_tf32`); CPU tensors take the plain version."""
+    _check_pack(coef, tc)
+    if not coef.is_cuda:
+        return pack_tables_plain(coef, tc)
+    n_tab, rows, k = coef.shape
+    out = torch.empty((n_tab, rows * padded_k(k)), dtype=torch.float32,
+                      device=coef.device)
+    with torch.cuda.device(coef.device):
+        _launch("pair_pack_tf32", _library().mb_pack_tables, coef.data_ptr(),
+                out.data_ptr(), n_tab, tc, k)
+    return out
+
+
+def pair_recurrence_plain(scratch: torch.Tensor,
+                          o: torch.Tensor) -> torch.Tensor:
+    """K9's second pass without the epilogue: o = p_s + 0.5 o over the rows
+    p_s of scratch (n_steps, br), in step order, from o (1, br)."""
+    v = o[0]
+    for p in scratch:
+        v = p + v * 0.5
+    return v[None]
+
+
+def pair_recurrence(scratch: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """`pair_recurrence_plain` by csrc/microbench.cu pair_recurrence_kernel
+    on a card, in place into o (counted as `pair_recurrence`); CPU tensors
+    take the plain version."""
+    _check("scratch", scratch)
+    if scratch.dim() != 2 or scratch.shape[0] < 1:
+        raise ValueError(f"pair_recurrence: scratch must be (n_steps >= 1, "
+                         f"br), got {tuple(scratch.shape)}")
+    _check("o", o, (1, scratch.shape[1]))
+    if scratch.device != o.device:
+        raise ValueError("pair_recurrence: tensors on different devices")
+    if not o.is_cuda:
+        return pair_recurrence_plain(scratch, o)
+    with torch.cuda.device(o.device):
+        _launch("pair_recurrence", _library().mb_pair_recurrence,
+                scratch.data_ptr(), o.data_ptr(), scratch.shape[1],
+                scratch.shape[0])
+    return o
+
+
 def pair_product_fn(feats: torch.Tensor, coef: torch.Tensor,
                     o_init: torch.Tensor, *, tc: int, n_steps: int,
-                    precision: str = "highest", epilogue: bool = False):
+                    precision: str = "highest", epilogue: bool = False,
+                    version: int = 2):
     """Checks K9's inputs once and returns a function of no arguments that
     computes `pair_product` of them: a timed loop calls it without the
     check of o_init's sign, which waits for the card. The tensors must not
@@ -321,6 +455,9 @@ def pair_product_fn(feats: torch.Tensor, coef: torch.Tensor,
     if precision not in PRECISIONS:
         raise ValueError(f"pair_product: precision must be one of "
                          f"{PRECISIONS}, got {precision!r}")
+    if version not in VERSIONS:
+        raise ValueError(f"pair_product: version must be one of {VERSIONS}, "
+                         f"got {version!r}")
     if feats.dim() != 2 or coef.dim() != 3:
         raise ValueError("pair_product: feats must be (k, br) and coef "
                          "(n_tab, 4 tc, k)")
@@ -338,45 +475,68 @@ def pair_product_fn(feats: torch.Tensor, coef: torch.Tensor,
     kw = dict(tc=tc, n_steps=n_steps, precision=precision, epilogue=epilogue)
     if not feats.is_cuda:
         return lambda: pair_product_plain(feats, coef, o_init, **kw)
-    rows, cols = PAIR_TILES[precision]
-    if tc % rows or br % cols or k > MAX_K or n_steps > 65535:
-        raise ValueError(f"pair_product ({precision}) on the card needs tc a "
-                         f"multiple of {rows}, br of {cols}, k <= {MAX_K} "
-                         f"and n_steps <= 65535; got tc={tc}, br={br}, "
-                         f"k={k}, n_steps={n_steps}")
+    rows, cols = PAIR_TILES[version, precision]
+    most_steps = 65535 if version == 1 else (2**31 - 1) // br
+    if tc % rows or br % cols or k > MAX_K or n_steps > most_steps:
+        raise ValueError(f"pair_product ({precision}, version {version}) on "
+                         f"the card needs tc a multiple of {rows}, br of "
+                         f"{cols}, k <= {MAX_K} and n_steps <= {most_steps}; "
+                         f"got tc={tc}, br={br}, k={k}, n_steps={n_steps}")
+    tf32 = int(precision == "default")
+    name = pair_name(precision, epilogue, version)
 
     def run() -> torch.Tensor:
         out = o_init.clone()
         scratch = (None if epilogue else
                    torch.empty((n_steps, br), dtype=torch.float32,
                                device=feats.device))
+        ptrs = (coef.data_ptr(), feats.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), None)
+        sizes = (coef.shape[0], tc, br, k, n_steps, tf32, int(epilogue), 0)
         with torch.cuda.device(feats.device):
-            _launch(pair_name(precision, epilogue),
-                    _library().mb_pair_product, coef.data_ptr(),
-                    feats.data_ptr(), out.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(), None,
-                    coef.shape[0], tc, br, k, n_steps,
-                    int(precision == "default"), int(epilogue), 0)
+            if version == 1:
+                _launch(name, _library().mb_pair_product_v1, *ptrs, *sizes)
+            else:
+                packed = pack_tables(coef, tc) if tf32 else None
+                _launch(name, _library().mb_pair_product, *ptrs,
+                        None if packed is None else packed.data_ptr(), *sizes)
+                if scratch is not None:
+                    pair_recurrence(scratch, out)
         return out
     return run
 
 
 def pair_product(feats: torch.Tensor, coef: torch.Tensor,
                  o_init: torch.Tensor, *, tc: int, n_steps: int,
-                 precision: str = "highest",
-                 epilogue: bool = False) -> torch.Tensor:
-    """K9 (csrc/microbench.cu pair_simt_kernel for `highest`,
-    pair_tf32_kernel for `default`): `pair_product_plain` with n_steps x
-    (br / column tile) CTAs. feats (k, br), coef (n_tab, 4 tc, k), o_init
-    (1, br); with the epilogue o_init must be >= +0 and not NaN (the steps
-    combine by an integer atomic min on the bits). On the card tc, br and
-    k must fit the kernel's tiles (PAIR_TILES, k <= MAX_K); it raises,
-    never falls back. CPU tensors take the plain version."""
+                 precision: str = "highest", epilogue: bool = False,
+                 version: int = 2) -> torch.Tensor:
+    """K9: `pair_product_plain` on the card. The second form (csrc/
+    microbench.cu pair_simt_kernel for `highest`; for `default`
+    `pack_tables`, then pair_wgmma_kernel) runs the steps on a persistent
+    grid; `version=1` the first form (pair_simt_v1_kernel,
+    pair_tf32_v1_kernel: n_steps x (br / column tile) CTAs). feats (k,
+    br), coef (n_tab, 4 tc, k), o_init (1, br); with the epilogue o_init
+    must be >= +0 and not NaN (the steps combine by an integer atomic min
+    on the bits). On the card tc, br and k must fit the form's tiles
+    (PAIR_TILES, k <= MAX_K); it raises, never falls back. Without the
+    epilogue the second form ends with `pair_recurrence`. CPU tensors take
+    the plain version."""
     return pair_product_fn(feats, coef, o_init, tc=tc, n_steps=n_steps,
-                           precision=precision, epilogue=epilogue)()
+                           precision=precision, epilogue=epilogue,
+                           version=version)()
+
+
+# The epilogue's SIMT instructions per (row, column) pair and step
+# (csrc/microbench.cu kEpilogueOps, derived there from epilogue_row).
+EPILOGUE_OPS = 19
 
 
 def pair_flops(*, tc: int, br: int, k: int, n_steps: int) -> int:
     """The product's operations, the JAX tool's 2 x 4 tc x br x k per step."""
     return 2 * 4 * tc * br * k * n_steps
 
+
+def pair_epilogue_ops(*, tc: int, br: int, n_steps: int) -> int:
+    """The epilogue's SIMT instructions: EPILOGUE_OPS per (row, column)
+    pair of every step."""
+    return EPILOGUE_OPS * tc * br * n_steps

@@ -421,6 +421,32 @@ def test_grid_overhead_kernel_copies(cuda, n_steps):
     assert torch.equal(out, x)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [1, 4096, 16384])
+def test_grid_overhead_loop_kernel_copies(cuda, n_steps):
+    """K8's loop form: one CTA per SM takes the steps in turn; the block
+    is copied at every step count."""
+    x = torch.randn((8, 1024), device=cuda)
+    before = mb.KERNELS["grid_overhead_loop"].launches
+    out = mb.grid_overhead_loop(x, n_steps)
+    torch.cuda.synchronize()
+    assert mb.KERNELS["grid_overhead_loop"].launches == before + 1
+    assert torch.equal(out, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tc,k", [(32, 13), (256, 13), (512, 128), (64, 1)])
+def test_pack_tables_kernel_matches_plain(cuda, tc, k):
+    coef = torch.from_numpy(np.random.default_rng(tc + k).normal(
+        size=(mb.N_TAB, 4 * tc, k)).astype(np.float32)).to(cuda)
+    before = mb.KERNELS["pair_pack_tf32"].launches
+    out = mb.pack_tables(coef, tc)
+    torch.cuda.synchronize()
+    assert mb.KERNELS["pair_pack_tf32"].launches == before + 1
+    assert torch.equal(out.view(torch.int32),
+                       mb.pack_tables_plain(coef, tc).view(torch.int32))
+
+
 def _tf32_within(out, want, feats, coef, epilogue) -> bool:
     """`out` within `mb.tf32_disagreement`'s limit of `want` (70 steps)."""
     reading, limit = mb.tf32_disagreement(out, want, feats, coef,
@@ -505,4 +531,108 @@ def test_pair_product_kernel_rejects_unsupported_tc(cuda, precision):
     with pytest.raises(ValueError, match="multiple"):
         mb.pair_product(feats, coef, o_init, tc=tc, n_steps=4,
                         precision=precision)
+    assert before == {n: v.launches for n, v in mb.KERNELS.items()}
+
+
+# (tc, br) of the tool's configurations with the fewest rows, the fewest
+# columns and the most rows.
+TOOL_SHAPES = [(128, 1024), (256, 512), (512, 1024)]
+# The TF32 flips limit (TF32_MAX_FLIPS) was set from k = 13 readings; at
+# k = 128 with the epilogue the tensor cores' own accumulation moves more
+# column minima past rtol 1e-3 in both forms (and in the first form before
+# the second existed), so that combination has a test of its own below.
+PAIR_CASES = [
+    (version, precision, epilogue, k, tc, br)
+    for version in (2, 1) for precision in ("highest", "default")
+    for epilogue in (False, True) for k in (13, 128) for tc, br in TOOL_SHAPES
+    if not (precision == "default" and epilogue and k == 128)]
+
+
+def _seeded_pair(cuda, tc, br, k, epilogue):
+    gen = torch.Generator(device=cuda).manual_seed(tc + br + k)
+    coef = torch.randn((mb.N_TAB, 4 * tc, k), generator=gen, device=cuda)
+    feats = torch.randn((k, br), generator=gen, device=cuda)
+    o_init = torch.full((1, br), mb.T_NONE if epilogue else 0.0, device=cuda)
+    return feats, coef, o_init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version,precision,epilogue,k,tc,br", PAIR_CASES)
+def test_pair_product_forms_match_plain_at_tool_shapes(cuda, version,
+                                                       precision, epilogue, k,
+                                                       tc, br):
+    """Both forms of K9 at three (tc, br) of the tool's configurations, k
+    13 and 128, over 70 steps of 64 seeded normal tables, against the
+    plain version on the card: bit-equal at highest, within the TF32
+    limits at default."""
+    feats, coef, o_init = _seeded_pair(cuda, tc, br, k, epilogue)
+    kw = dict(tc=tc, n_steps=70, precision=precision, epilogue=epilogue)
+    name = mb.pair_name(precision, epilogue, version)
+    before = mb.KERNELS[name].launches
+    out = mb.pair_product(feats, coef, o_init, version=version, **kw)
+    torch.cuda.synchronize()
+    assert mb.KERNELS[name].launches == before + 1
+    want = mb.pair_product_plain(feats, coef, o_init, **kw)
+    if precision == "highest":
+        assert _bits_equal(out, want)
+    else:
+        assert _tf32_within(out, want, feats, coef, epilogue)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tc,br", TOOL_SHAPES)
+def test_tf32_epilogue_at_k128_readings(cuda, tc, br, capsys):
+    """K9 at TF32 with the epilogue at k = 128: both forms run and agree
+    with the plain version on the accepted columns (finite minima, no
+    column accepted by one and not the other), and the TF32 limit still
+    holds for an exactly summed TF32 product and rejects the f32 product.
+    The forms' flip shares are printed, not held to TF32_MAX_FLIPS: the
+    tensor cores' accumulation over 128 terms exceeds it in both forms
+    (PERF.md, section 6)."""
+    feats, coef, o_init = _seeded_pair(cuda, tc, br, 128, True)
+    kw = dict(tc=tc, n_steps=70, precision="default", epilogue=True)
+    want = mb.pair_product_plain(feats, coef, o_init, **kw)
+    how = dict(n_steps=70, epilogue=True)
+    readings = {}
+    for version in mb.VERSIONS:
+        out = mb.pair_product(feats, coef, o_init, version=version, **kw)
+        assert torch.equal(out < mb.T_NONE, want < mb.T_NONE)
+        readings[version] = mb.tf32_disagreement(out, want, feats, coef,
+                                                 **how)[0]
+    real = mb._products
+    try:
+        mb._products = lambda c, f: torch.einsum(
+            "nmk,kb->nmb", c.double(), f.double()).float()
+        exact = mb.pair_product_plain(feats, coef, o_init, **kw)
+    finally:
+        mb._products = real
+    assert _tf32_within(exact, want, feats, coef, True)
+    f32 = mb.pair_product_plain(feats, coef, o_init,
+                                **dict(kw, precision="highest"))
+    assert not _tf32_within(f32, want, feats, coef, True)
+    with capsys.disabled():
+        print(f"\nK9 TF32 epilogue k=128 tc={tc} br={br}: flip share "
+              f"second form {readings[2]:.4f}, first {readings[1]:.4f}, "
+              f"limit {mb.TF32_MAX_FLIPS}")
+
+
+@pytest.mark.cuda
+def test_pair_product_forms_reject_what_their_kernels_refuse(cuda):
+    """Each form raises on a tc or br its tiles do not take, on the card,
+    and launches nothing: the second form's tiles are coarser than the
+    first's."""
+    k = 13
+    before = {n: v.launches for n, v in mb.KERNELS.items()}
+    for version, precision, tc, br in ((2, "highest", 16, 128),
+                                       (2, "default", 32, 128),
+                                       (1, "highest", 12, 128),
+                                       (1, "default", 16, 96)):
+        coef = torch.ones((mb.N_TAB, 4 * tc, k), device=cuda)
+        feats = torch.ones((k, br), device=cuda)
+        o_init = torch.zeros((1, br), device=cuda)
+        with pytest.raises(ValueError, match="multiple"):
+            mb.pair_product(feats, coef, o_init, tc=tc, n_steps=4,
+                            precision=precision, version=version)
+    with pytest.raises(ValueError, match="multiple"):
+        mb.pack_tables(torch.ones((2, 4 * 16, k), device=cuda), 16)
     assert before == {n: v.launches for n, v in mb.KERNELS.items()}

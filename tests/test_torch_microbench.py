@@ -9,7 +9,9 @@ Tolerances:
   and `fma_chain_plain(fused=True)` rounds each once: bit-equal, the
   non-finite values (the chains overflow to inf, then NaN) in the same
   places. The unfused chains equal numpy f32 with two roundings.
-- K8: a copy, equal.
+- K8 (both forms): a copy, equal.
+- K9's packing pass and recurrence: exact (a permutation of TF32-rounded
+  values; the same f32 operations in the same order).
 - K9 at HIGHEST: XLA's dot sums k in an order (and with contractions) of
   its own, the plain version in k order with two roundings per term. Each
   step's P differs by a few ulps of sum |products|, so the output without
@@ -227,6 +229,25 @@ def test_grid_overhead_plain_matches_pallas():
         mb.grid_overhead(torch.from_numpy(x), 0)
 
 
+@pytest.mark.parametrize("n_steps", [1, 5, 16])
+def test_grid_overhead_loop_plain_is_a_copy(n_steps):
+    """K8's loop form computes what the TPU probe does: the block copied,
+    whatever the step count (the Pallas body is held to the same plain
+    version above)."""
+    x = torch.from_numpy(np.random.default_rng(n_steps).normal(
+        size=(8, 128)).astype(np.float32))
+    counts = {k: v.launches for k, v in mb.KERNELS.items()}
+    out = mb.grid_overhead_loop(x, n_steps)
+    assert _same(out.numpy(), x.numpy())
+    assert out.data_ptr() != x.data_ptr()
+    assert counts == {k: v.launches for k, v in mb.KERNELS.items()}
+    for bad in (0, -3):
+        with pytest.raises(ValueError, match="n_steps"):
+            mb.grid_overhead_loop(x, bad)
+    with pytest.raises(ValueError, match="float32"):
+        mb.grid_overhead_loop(x.double(), 4)
+
+
 # ---- K9 ----------------------------------------------------------------------
 
 def _pair_inputs(tc, br, k, epilogue, seed):
@@ -337,6 +358,131 @@ def test_pair_product_checks_its_inputs():
     mb.pair_product(feats, coef, -o_init, tc=tc, n_steps=2)
 
 
+def _image_offset(q, kk, kp):
+    """csrc/microbench.cu's packed image: core matrices of 8 rows x 4
+    values, by row group, then k / 4."""
+    return (((q // 8) * (kp // 4) + kk // 4) * 8 + q % 8) * 4 + kk % 4
+
+
+@pytest.mark.parametrize("tc,k", [(32, 13), (64, 40), (32, 128), (96, 1)])
+def test_pack_tables_plain_is_tf32_of_padded_tables(tc, k):
+    """The packing pass's plain version holds to_tf32 of the zero-padded
+    tables, each value where the wgmma kernel reads it: packed row q is
+    table row (q % 128 // 32) tc + (q // 128) 32 + q % 32 (chunks of 32
+    rows of det, tdet, udet and vdet in turn), at the image offset."""
+    rng = np.random.default_rng(tc + k)
+    coef = rng.normal(size=(3, 4 * tc, k)).astype(np.float32)
+    got = mb.pack_tables_plain(torch.from_numpy(coef), tc).numpy()
+    kp = mb.padded_k(k)
+    assert kp % 8 == 0 and k <= kp < k + 8
+    assert got.shape == (3, 4 * tc * kp)
+    want = np.zeros((3, 4 * tc, kp), np.float32)
+    want[:, :, :k] = mb.to_tf32(torch.from_numpy(coef)).numpy()
+    for q in range(4 * tc):
+        row = (q % 128 // 32) * tc + (q // 128) * 32 + q % 32
+        for kk in range(kp):
+            off = _image_offset(q, kk, kp)
+            assert _same(got[:, off], want[:, row, kk]), (q, kk)
+    assert set(np.unique(got.view(np.int32) & 0x1FFF)) == {0}   # TF32
+    assert mb.packed_rows(tc).tolist() == sorted(
+        range(4 * tc), key=lambda r: ((r % tc) // 32, r // tc, r % 32))
+
+
+def test_pack_tables_takes_plain_on_cpu_and_checks_its_input():
+    coef = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 4 * 32, 13)).astype(np.float32))
+    counts = {k: v.launches for k, v in mb.KERNELS.items()}
+    assert torch.equal(mb.pack_tables(coef, 32),
+                       mb.pack_tables_plain(coef, 32))
+    assert counts == {k: v.launches for k, v in mb.KERNELS.items()}
+    for bad_tc in (16, 48):       # no multiple of WG_ROWS; or of 4 tc rows
+        bad = torch.zeros((2, 4 * bad_tc, 13))
+        with pytest.raises(ValueError, match="multiple|tc"):
+            mb.pack_tables(bad, bad_tc)
+    with pytest.raises(ValueError, match="tc = 64"):
+        mb.pack_tables(coef, 64)
+    with pytest.raises(ValueError, match="k <="):
+        mb.pack_tables(torch.zeros((1, 128, mb.MAX_K + 1)), 32)
+    with pytest.raises(ValueError, match="float32"):
+        mb.pack_tables(coef.double(), 32)
+
+
+@pytest.mark.parametrize("n_steps", [1, 17, 70])
+def test_pair_recurrence_plain_is_the_step_order_recurrence(n_steps):
+    """K9's second pass (o = p_s + 0.5 o in step order) equals numpy f32
+    with each product and sum rounded, and `_mm_kernel`'s own recurrence
+    through `pair_product_plain` (its P[0] rows as scratch); the wrapper
+    takes it on the CPU, launches nothing and checks its input."""
+    rng = np.random.default_rng(n_steps)
+    scratch = rng.normal(size=(n_steps, 128)).astype(np.float32)
+    o = rng.normal(size=(1, 128)).astype(np.float32)
+    want = o[0].copy()
+    for p in scratch:
+        want = p + want * np.float32(0.5)
+    counts = {k: v.launches for k, v in mb.KERNELS.items()}
+    got = mb.pair_recurrence(torch.from_numpy(scratch), torch.from_numpy(o))
+    assert _same(got.numpy()[0], want)
+    assert counts == {k: v.launches for k, v in mb.KERNELS.items()}
+    tc, k = 8, 13
+    coef, feats, o_init = _pair_inputs(tc, 128, k, False, seed=n_steps)
+    rows = mb._products(torch.from_numpy(coef[:, 0:1]),
+                        torch.from_numpy(feats))[:, 0]
+    steps = rows[torch.arange(n_steps) % mb.N_TAB]
+    assert torch.equal(
+        mb.pair_recurrence_plain(steps, torch.from_numpy(o_init)),
+        mb.pair_product_plain(torch.from_numpy(feats), torch.from_numpy(coef),
+                              torch.from_numpy(o_init), tc=tc,
+                              n_steps=n_steps))
+    with pytest.raises(ValueError, match="shape"):
+        mb.pair_recurrence(torch.from_numpy(scratch), torch.zeros((1, 64)))
+    with pytest.raises(ValueError, match="n_steps"):
+        mb.pair_recurrence(torch.zeros((0, 128)), torch.zeros((1, 128)))
+
+
+@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_pair_product_versions_take_plain_on_cpu(version, precision):
+    """Both forms of K9 compute `pair_product_plain`: on CPU tensors the
+    wrapper returns it and launches nothing; an unknown form raises."""
+    tc, br, k = 8, 128, 13
+    coef, feats, o_init = (torch.from_numpy(a) for a in _pair_inputs(
+        tc, br, k, True, seed=6))
+    kw = dict(tc=tc, n_steps=5, precision=precision, epilogue=True)
+    counts = {k: v.launches for k, v in mb.KERNELS.items()}
+    got = mb.pair_product(feats, coef, o_init, version=version, **kw)
+    assert torch.equal(got, mb.pair_product_plain(feats, coef, o_init, **kw))
+    assert counts == {k: v.launches for k, v in mb.KERNELS.items()}
+    with pytest.raises(ValueError, match="version"):
+        mb.pair_product(feats, coef, o_init, version=3, **kw)
+    assert mb.pair_name(precision, True, version) in mb.KERNELS
+
+
+def test_pair_tiles_and_epilogue_ops_match_the_source():
+    """The wrapper's tiles and epilogue count are csrc/microbench.cu's own
+    constants (the card raises for tiles it does not take)."""
+    import re
+
+    with open(mb.SOURCE) as fh:
+        src = fh.read()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+    ops = const("kEpilogueOps")
+    assert re.fullmatch(r"[\d +]+", ops) and sum(
+        int(v) for v in ops.split("+")) == mb.EPILOGUE_OPS
+    assert mb.pair_epilogue_ops(tc=256, br=1024, n_steps=2) == (
+        mb.EPILOGUE_OPS * 256 * 1024 * 2)
+    assert int(const("kWgN")) == mb.WG_ROWS
+    assert mb.PAIR_TILES[2, "highest"] == (int(const("kSimtChunk")),
+                                           int(const("kSimtCols")))
+    assert mb.PAIR_TILES[2, "default"] == (
+        int(const("kWgN")), int(const("kWgMaxGroups")) * int(const("kWgM")))
+    assert mb.PAIR_TILES[1, "highest"] == (int(const("kSimtV1Rows")),
+                                           int(const("kSimtV1Cols")))
+    assert mb.PAIR_TILES[1, "default"] == (int(const("kTcV1Rows")),
+                                           int(const("kTcV1Cols")))
+
+
 # ---- formulas and the tools --------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -413,3 +559,38 @@ def test_tools_drive_their_probes_on_cpu(tvpu, tkernel):
     assert len(tkernel.CONFIGS) == 15
     assert tkernel.CONFIGS[:2] == ((256, 1024, 13, "highest", False),
                                    (256, 1024, 13, "default", False))
+
+
+def test_kernel_tool_reports_both_forms_and_their_bounds(tkernel):
+    """microbench_kernel_torch.py measures K8's two forms, the launch probe
+    and K9's two forms; its bounds add the epilogue's SIMT instructions to
+    an f32 product and take the larger beside a TF32 one; its expected
+    launch counts follow `measure`'s calls."""
+    configs = ((8, 128, 13, "highest", True), (16, 256, 13, "default", False))
+    raw = tkernel.measure("cpu", grid_steps=(1, 4), br=128, configs=configs,
+                          n_steps=2, reps=1)
+    assert [r["form"] for r in raw["grid_loop"]] == ["loop", "loop"]
+    assert [r["version"] for r in raw["pair"]] == [2, 2]
+    assert [r["version"] for r in raw["pair_v1"]] == [1, 1]
+    assert {"empty_ctas_ms", "clone_ms", "host_us_copy_ctas"} <= set(
+        raw["launch"])
+    kw = dict(tc=256, br=1024, k=13, n_steps=2048)
+    hi = tkernel.pair_bounds(precision="highest", epilogue=True, **kw)
+    flops = mb.pair_flops(**kw)
+    epi = mb.pair_epilogue_ops(tc=256, br=1024, n_steps=2048)
+    assert hi["ops_ms"] == pytest.approx(
+        (flops / 67e12 + epi / 33.5e12) * 1e3)
+    assert hi["nofma_ms"] == pytest.approx((flops + epi) / 33.5e12 * 1e3)
+    tf = tkernel.pair_bounds(precision="default", epilogue=True, **kw)
+    assert tf["ops_ms"] == pytest.approx(max(flops / 495e12,
+                                             epi / 33.5e12) * 1e3)
+    assert tf["bound_by"] == "operations" and tf["nofma_ms"] is None
+    plain = tkernel.pair_bounds(precision="default", epilogue=False, **kw)
+    assert plain["epilogue_ops"] == 0
+    want = tkernel.expected_launches(grid_steps=(1, 4), configs=configs,
+                                     reps=1, host_calls=5)
+    assert want == {"grid_overhead": 4 * 2 + 5, "grid_overhead_loop": 4 * 2,
+                    "pair_product_highest_epilogue": 2,
+                    "pair_product_v1_highest_epilogue": 2,
+                    "pair_product_default": 2, "pair_product_v1_default": 2,
+                    "pair_pack_tf32": 2, "pair_recurrence": 2}
