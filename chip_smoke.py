@@ -82,7 +82,10 @@ of the tables):
     frame's idle share) and holds three of its shadow queries (bounce
     0's middle point+distant and area queries, bounce 2's point+distant
     one with the most live tile-super pairs) to the plain version and
-    the tile walk;
+    the tile walk; then likewise for the closest hits on the tile walk
+    and the closest walk (tools/closest_walk_torch.py: the closest-hit
+    kernels' device time per bounce), holding bounce 0's middle and
+    bounce 2's heaviest closest-hit queries to the plain version;
 15. whole-render parity at 384x216 with SSAA and the counters on, at
     anyhit_compact_frac 0 and 0.5, kernels vs plain versions; the two
     fracs' frames bit-equal;
@@ -125,7 +128,7 @@ pair test's product in f32 and TF32), through their two tools:
 
 The any-hit walk (csrc/mesh_intersect.cu `anyhit_walk_kernel`, every
 any hit of every path) and the tile walk it replaced (`any_hit_tile_walk*`,
-launched only here):
+launched only here and by the tools):
 
 22. the seeded adversarial shadow queries of ops/shadow_cases.py
     (interleaved pre-resolved lanes, rays leaving the mesh at the scene's
@@ -139,13 +142,22 @@ launched only here):
     the kept fused any hit agrees with its plain version, and the whole
     render equals the plain versions' in u8 and counters.
 
-Every any-hit query a phase holds to its plain version (phases 3, 7, 11,
-12, 13, 14, 16, 23) is also timed on both walks in turns (tile, packed,
-packed, tile; `ms` is the packed walk's, `tile_walk_ms` the tile walk's)
-with the work counts of the plain version (pairs, union_pairs,
+Every query a phase holds to its plain version (phases 3, 7, 11, 12, 13,
+14, 16, 23) is also timed against the tile walk its kernel replaced, in
+turns (tile, new, new, tile; `ms` is the new walk's, `tile_walk_ms` the
+tile walk's): an any hit on the any-hit walk, a closest hit on the
+closest walk (csrc/mesh_intersect.cu `closest_walk_kernel`: a tile
+split by rays over a thread block cluster; `*closest_hit_tile_walk*`
+is the walk it replaced, launched only here and by the tools), which
+is also timed at every cluster size in turns (`cluster_ms`). Each row
+carries the work counts of the plain version (pairs, union_pairs,
 warp_pairs, packed_pairs, tile_union_max), the union and heaviest-tile
 bounds, and each walk's tile timeline (longest and mean tile, the tail
-from the 95th-percentile tile end, CTAs per SM, registers, spills).
+from the 95th-percentile tile end, CTAs per SM, resident clusters,
+registers, spills). The build prints, per intersection kernel, the
+SASS instructions and shared loads per ray-triangle pair in its pair
+loop. Every render, train and CLI path's launch check requires 0
+launches of every tile-walk variant.
 
 Each phase prints its duration. Every time comes from
 `utils.timer.mean_ms` (CUDA events, the launches queued behind a ~2 ms
@@ -165,8 +177,6 @@ import importlib.util
 import json
 import math
 import os
-import shutil
-import subprocess
 import sys
 import time
 
@@ -351,9 +361,10 @@ def sample_tiles(ci, prep, n_tiles: int):
     lanes = (pick[:, None] * ci.RAY_TILE
              + torch.arange(ci.RAY_TILE)[None, :]).reshape(-1)
     pick, lanes = pick.to(prep.aux.device), lanes.to(prep.aux.device)
+    counts = prep.counts[pick].contiguous()
     return ci.Prepared(prep.aux[:, lanes].contiguous(),
-                       prep.torder[pick].contiguous(),
-                       prep.counts[pick].contiguous(), lanes.numel())
+                       prep.torder[pick].contiguous(), counts, lanes.numel(),
+                       *ci.tile_schedule(counts))
 
 
 def check_parity(ci, name, tables, prep, bfc) -> float:
@@ -385,16 +396,18 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
     """Times of the kernel, its plain version and the pre-pass on a
     prepared query of the main path, and the kernel's bound from this
     query's work. Also checks the kernel against its plain version on the
-    whole query. An any hit is timed against the tile walk it replaced,
-    in turns (tile, packed, packed, tile; `ms` the packed walk's mean,
+    whole query. Every query is timed against the tile walk its kernel
+    replaced, in turns (tile, new, new, tile; `ms` the new walk's mean,
     `tile_walk_ms` the tile walk's), which must agree with the plain
-    version too; its row adds the work counts (union_pairs, warp_pairs,
-    packed_pairs, tile_union_max), the union and heaviest-tile bounds,
-    and both walks' tile timelines and resources."""
+    version too: an any hit on the any-hit walk, a closest hit on the
+    closest walk at CLOSEST_CLUSTER CTAs per tile (and at every cluster
+    size in turns, `cluster_ms`). Its row adds the work counts
+    (union_pairs, warp_pairs, packed_pairs, tile_union_max), the live
+    supers a tile (mean, max), the union and heaviest-tile bounds, and
+    the walks' tile timelines and resources."""
     kw = flags(ci, name)
     stats: dict = {}
     out_p = plain(ci, tables, prep, bfc, stats, **kw)
-    walk = None
     if kw["anyhit"]:
         walk = tool("anyhit_walk_torch").walk_ab(name, tables, prep, bfc,
                                                  out_p)
@@ -405,9 +418,17 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
               f"{walk['packed_fit_ms']:.5f} ms); tiles: tile walk "
               f"{json.dumps(walk['tile_timeline'])}, packed walk "
               f"{json.dumps(walk['packed_timeline'])}")
-        ms = walk["ms"]
     else:
-        ms = mean_ms(lambda: launch(ci, tables, prep, bfc, **kw), reps=20)
+        cw = tool("closest_walk_torch")
+        walk = cw.walk_ab(name, tables, prep, bfc, out_p)
+        ab = walk["ab_ms"]
+        print(f"A/B {name} ({prep.n_rays} rays): tile walk {ab[0]:.5f}, "
+              f"closest walk {ab[1]:.5f}, {ab[2]:.5f}, tile walk "
+              f"{ab[3]:.5f} ms (by CTAs per tile, in turns: "
+              f"{json.dumps(walk['cluster_ms'])}); tiles: tile walk "
+              f"{json.dumps(walk['tile_timeline'])}, closest walk "
+              f"{json.dumps(walk[cw.SHIPPED + '_timeline'])}")
+    ms = walk["ms"]
     plain_ms = mean_ms(lambda: plain(ci, tables, prep, bfc, **kw), reps=1)
     out_k = launch(ci, tables, prep, bfc, **kw)
     if not same(out_k, out_p):
@@ -437,14 +458,15 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "ops": ops, "bytes_ms": bytes_ms,
     }
-    if walk is not None:
-        out.update({k: stats[k] for k in ("union_pairs", "warp_pairs",
-                                          "packed_pairs", "tile_union_max")})
-        out["union_bound_ms"] = (stats["union_pairs"] * OPS_PER_PAIR
-                                 / F32_OPS_RATE * 1e3)
-        out["tile_bound_ms"] = (stats["tile_union_max"] * OPS_PER_PAIR
-                                / (F32_OPS_RATE / SMS) * 1e3)
-        out.update(walk)
+    out.update({k: stats[k] for k in ("union_pairs", "warp_pairs",
+                                      "packed_pairs", "tile_union_max")})
+    out["live_supers_mean"] = float(prep.counts.double().mean())
+    out["live_supers_max"] = int(prep.counts.max())
+    out["union_bound_ms"] = (stats["union_pairs"] * OPS_PER_PAIR
+                             / F32_OPS_RATE * 1e3)
+    out["tile_bound_ms"] = (stats["tile_union_max"] * OPS_PER_PAIR
+                            / (F32_OPS_RATE / SMS) * 1e3)
+    out.update(walk)
     return out
 
 
@@ -904,29 +926,7 @@ def sass_counts(path: str) -> dict:
     `loop_lds_per_term`). Empty where the toolkit has no cuobjdump."""
     import re
 
-    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(exe):
-        return {}
-    sass = subprocess.run([exe, "-sass", path], capture_output=True,
-                          text=True, check=True).stdout
-    instrs: dict = {}   # per kernel: (address, text) of each instruction
-    fn = None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:  # a mangled name: <length><identifier>, then the template
-            name = m.group(1)
-            for d in re.finditer(r"\d+", name):
-                ident = name[d.end():d.end() + int(d.group())]
-                if ident.endswith("_kernel"):
-                    args = re.findall(r"L[bi](\d+)E",
-                                      name[d.end() + len(ident):])
-                    fn = f"{ident}<{','.join(args)}>"  # fma_chain_kernel<1,6>
-                    break
-            instrs[fn] = []
-            continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([A-Z@].*)", line)
-        if fn is not None and m:
-            instrs[fn].append((int(m.group(1), 16), m.group(2)))
+    instrs = tool("closest_walk_torch").sass_by_kernel(path)
     counts: dict = {}
     for fn, code in instrs.items():
         c = counts[fn] = {**dict.fromkeys(SASS_OPS, 0), "total": len(code)}
@@ -1437,6 +1437,9 @@ def main() -> int:
     probe_sass = sass_counts(built[1][0])
     for fn, n in probe_sass.items():
         print(f"  sass {fn}: {n}")
+    walk_sass = tool("closest_walk_torch").pair_loops(built[0][0])
+    for fn, n in sorted(walk_sass.items()):
+        print(f"  sass {fn}: {json.dumps(n)}")
 
     t0 = time.perf_counter()
     scene = build_flagship_scene(WIDTH, HEIGHT, n_tris=N_TRIS)
@@ -1720,6 +1723,21 @@ def main() -> int:
         b_queries[key] = kernel_numbers(ci, "any_hit", *kept_b[key], bfc)
         print(f"any_hit, bouncing {key}: {json.dumps(b_queries[key])}")
     del kept_b
+    # The frame's closest hits on each walk, by bounce, and bounce 0's
+    # middle and bounce 2's heaviest closest-hit queries.
+    cw = tool("closest_walk_torch")
+    closest_frames = {}
+    for walk in ("tile", cw.SHIPPED):
+        kept_c = dict(cw.bouncing_keep(n_blocks))
+        closest_frames[walk] = cw.frame_closest_ms(tiny, walk, kept_c)
+        print(f"bouncing frame, every closest hit on the {walk} walk: "
+              f"{json.dumps(closest_frames[walk])} on {card_line}")
+    cw.heaviest_bounce2(kept_c, n_blocks)
+    b_closest = {}
+    for key in ("bounce0", "bounce2"):
+        b_closest[key] = kernel_numbers(ci, "closest_hit", *kept_c[key], bfc)
+        print(f"closest_hit, bouncing {key}: {json.dumps(b_closest[key])}")
+    del kept_c
     lap("14 bouncing frame")
 
     # ---- 15. bouncing whole-render parity, single pass and K6 ---------------
@@ -1895,8 +1913,16 @@ def main() -> int:
             "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
             "library_ms": None,
         }
-        if "tile_walk_ms" in n:  # an any hit: the walk it replaced
-            row["tile_walk_ms"] = n["tile_walk_ms"]
+        # The tile walk's variant that the kernel replaced, timed in turns
+        # with it on the same query; no path launches it.
+        old = ci.variant_name(
+            anyhit=ci.KERNELS[name].anyhit,
+            fused=ci.KERNELS[name].fused and not ci.KERNELS[name].anyhit,
+            root_filter=ci.KERNELS[name].root_filter,
+            collect_stats=ci.KERNELS[name].collect_stats, tile_walk=True)
+        row["tile_walk_ms"] = n["tile_walk_ms"]
+        row["tile_walk"] = {"name": old, "ms": n["tile_walk_ms"],
+                            "launches": launches.get(old, 0)}
         rows.append(row)
     rows += probe_rows
 
@@ -1915,9 +1941,12 @@ def main() -> int:
                      "peak_bytes": b_peak, "bounces": bounces,
                      "fwd_bwd": b_train, "k6": k6, "k2_same_query": k2_same,
                      "anyhit_frames": anyhit_frames, "anyhit_queries": b_queries,
+                     "closest_frames": closest_frames,
+                     "closest_queries": b_closest,
                      "adversarial": adversarial, "transparent": transparent,
                      "flagship_steps_by_frac": frac_steps,
                      "t01": {"measures": t01, "dropped": t01_dropped}},
+        "intersect_sass": walk_sass,
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
                    "k9_ab": kprobe["ab"], "k9_sass": kprobe["sass"],
                    "k1_k6_shares": shares},

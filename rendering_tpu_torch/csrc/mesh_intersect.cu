@@ -36,11 +36,12 @@
 //     and the same on every run.
 // Variants not asked for compile out, so the plain walk keeps its code.
 //
-// Two walks. The tile walk (mesh_intersect_kernel) runs every closest
-// hit, and the any hit as it was before the any-hit walk replaced it
-// (entry rt_anyhit_tile_walk, launched only to be timed against the
-// any-hit walk). The any-hit walk (anyhit_walk_kernel) runs every any
-// hit: K2, K3/K4's any-hit variants, K5's fused any hit and K6's phases.
+// Three walks. The closest walk (closest_walk_kernel) runs every closest
+// hit: K1, K3/K4's closest variants and K5's fused closest hit. The
+// any-hit walk (anyhit_walk_kernel) runs every any hit: K2, K3/K4's
+// any-hit variants, K5's fused any hit and K6's phases. The tile walk
+// (mesh_intersect_kernel) is both as they were before (entry
+// rt_tile_walk), launched only to be timed against them.
 //
 // The tile walk. One CTA per 512-ray tile, one ray per thread, launched
 // in tile order. The CTA walks its tile's live super-chunk list
@@ -113,9 +114,61 @@
 // the schedule changes no bit; ids and t equal the tile walk's and the
 // plain version's.
 //
+// What bounded the tile walk's closest hit (H100 80GB HBM3, 700 W,
+// PERF.md): as for the any hit, the launch's span was its longest tile on
+// every query measured (flagship 382 us, the 16-mesh scene 407 us, the
+// bouncing frame's bounce 2 9178 us against a 577 us mean tile). A tile
+// ran on one CTA, two to an SM, so no schedule of whole tiles could go
+// below the heaviest one.
+//
+// The closest walk splits the tile and keeps the evaluated set:
+//  (i) Heavy tiles split over a thread block cluster of G CTAs of 512
+//      threads (ops/cuda_intersect.py CLOSEST_CLUSTER): rank c holds rays
+//      [c 512/G, (c+1) 512/G), each ray on G threads that split every
+//      piece's triangles and meet after it (lowest t, then lowest row:
+//      the row-order walk's winner, as the winner is the least t among
+//      the accepted rows whatever their order). One ray a thread left a
+//      split tile's CTAs 512/G threads: the cluster's CTAs ran on G SMs,
+//      but at G = 4 the heaviest tile of the bouncing frame's bounce 2
+//      still took 4.9 ms, latency-bound on a few warps an SM. Splitting
+//      every tile cost the flagship's even tiles more in per-super
+//      latency than it gained, so only a tile whose live-super count is
+//      at least SPLIT_FACTOR times the query's mean is split (the
+//      pre-pass's `n_split`, heaviest first); the rest run whole, one
+//      CTA a tile, one ray a thread, G of them to a cluster, heaviest
+//      tile first (`order`). The ranks of a split
+//      tile agree on its tile-live sub-chunks through distributed shared
+//      memory: each sums its rays' live masks (and, counting, its live
+//      rays per sub-chunk) into a slot of its own, and after a cluster
+//      barrier every thread ORs the G slots (a whole tile does the same
+//      within its CTA). A ray's running t only falls, so a sub-chunk dead
+//      at the super's start stays dead: the exchange runs once at the
+//      super's start and again only after an evaluated sub-chunk that
+//      leaves candidates, and a sub-chunk runs iff some ray of the tile
+//      needs it at that moment, as in the TPU formulation. The per-pair
+//      arithmetic does not change, so every ray meets the same triangles.
+//  (ii) The super's cull once per ray: each cull box's ctmin and the
+//      boxes the ray's slab meets are kept per thread (ptxas holds part
+//      of them in local memory under the 64-register cap), and the test
+//      with the running t is a compare per box.
+//  (iii) Staging overlapped with compute: the next candidate sub-chunk's
+//      rows and the next super's boxes are copied with cp.async into a
+//      second buffer while the current rows compute; the exchange's
+//      barrier publishes them, so a prefetch that stays live costs no
+//      barrier of its own.
+//  (iv) Rows read four triangles at a time, one 16-byte shared load per
+//      row (9 per 4 pairs instead of 36).
+// Lanes are not packed: on every query measured (primary rays, the
+// bouncing frame's bounces 0 and 2) warp_pairs equalled union_pairs.
+// box_tests (n_live x n_sub x 512) and tri_tests (tc x the tile's live
+// rays at each evaluated sub-chunk's start) are summed by the tile's first
+// thread; ids, t and the counters equal the tile walk's and the plain
+// version's.
+//
 // TIMING variants (not launched by any render path) record each tile's
-// [%globaltimer start, end, %smid]: tools/anyhit_walk_torch.py turns them
-// into the longest and mean tile and the tail.
+// [%globaltimer start, end, %smid]: tools/anyhit_walk_torch.py and
+// tools/closest_walk_torch.py turn them into the longest and mean tile
+// and the tail.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -126,6 +179,7 @@ constexpr int kRayTile = 512;   // rays per CTA (the TPU ray tile)
 constexpr int kWarps = kRayTile / 32;
 constexpr int kPiece = 64;      // triangles staged in shared memory at once
 constexpr int kMaxSub = 16;     // cull chunks per super, at most
+constexpr int kCullRegs = 8;    // ... in the closest walk, which keeps each one's ctmin per ray
 constexpr float kFmax = 3.4028234663852886e38f;
 
 // jnp.minimum / jnp.maximum: NaN in, NaN out (fminf/fmaxf drop a NaN).
@@ -175,18 +229,15 @@ __device__ __forceinline__ bool cull_live(const float* box, const float o[3],
          !((ctmin >= t_best) || (t_best < 0.0f));
 }
 
-// One ray against staged triangle q (rows v0 e1 e2 [reach_lo reach_hi]
-// of a (kRows, kPiece) block): Moller-Trumbore in _intersect_chunk's f32
-// order, accepted strictly below t_best, then the root filter's slab
-// for a pair it accepted. The hit's t goes to t_hit.
-template <int kRows, bool ROOT_FILTER>
-__device__ __forceinline__ bool pair_test(const float (*s)[kPiece], int q,
-                                          const float o[3], const float d[3],
-                                          const float iv[3], float t_best,
+// Moller-Trumbore of one ray against one triangle's rows r = v0 e1 e2 in
+// _intersect_chunk's f32 order, accepted strictly below t_best; the hit's
+// t goes to t_hit.
+__device__ __forceinline__ bool mt_accept(const float r[9], const float o[3],
+                                          const float d[3], float t_best,
                                           int backface, float& t_hit) {
-  const float v00 = s[0][q], v01 = s[1][q], v02 = s[2][q];
-  const float e10 = s[3][q], e11 = s[4][q], e12 = s[5][q];
-  const float e20 = s[6][q], e21 = s[7][q], e22 = s[8][q];
+  const float v00 = r[0], v01 = r[1], v02 = r[2];
+  const float e10 = r[3], e11 = r[4], e12 = r[5];
+  const float e20 = r[6], e21 = r[7], e22 = r[8];
   const float p0v = d[1] * e22 - d[2] * e21;
   const float p1v = d[2] * e20 - d[0] * e22;
   const float p2v = d[0] * e21 - d[1] * e20;
@@ -200,14 +251,34 @@ __device__ __forceinline__ bool pair_test(const float (*s)[kPiece], int q,
   const float q2 = tv0 * e11 - tv1 * e10;
   const float v = ((d[0] * q0 + d[1] * q1) + d[2] * q2) * inv;
   const float t = ((e20 * q0 + e21 * q1) + e22 * q2) * inv;
-  ok = ok && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
-       (u + v <= 1.0f) && (t >= 0.0f) && (t < t_best);
-  if (ROOT_FILTER && ok) {
-    const float lo[3] = {s[kRows - 6][q], s[kRows - 5][q], s[kRows - 4][q]};
-    const float hi[3] = {s[kRows - 3][q], s[kRows - 2][q], s[kRows - 1][q]};
-    ok = reach_hit(lo, hi, o, iv);
-  }
   t_hit = t;
+  return ok && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
+         (u + v <= 1.0f) && (t >= 0.0f) && (t < t_best);
+}
+
+// The root filter's slab for staged triangle q of a (kRows, kPiece)
+// block, whose rows 9-14 hold its reach box.
+template <int kRows>
+__device__ __forceinline__ bool reach_staged(const float (*s)[kPiece], int q,
+                                             const float o[3], const float iv[3]) {
+  const float lo[3] = {s[kRows - 6][q], s[kRows - 5][q], s[kRows - 4][q]};
+  const float hi[3] = {s[kRows - 3][q], s[kRows - 2][q], s[kRows - 1][q]};
+  return reach_hit(lo, hi, o, iv);
+}
+
+// One ray against staged triangle q (rows v0 e1 e2 [reach_lo reach_hi]
+// of a (kRows, kPiece) block): mt_accept, then the root filter's slab
+// for a pair it accepted.
+template <int kRows, bool ROOT_FILTER>
+__device__ __forceinline__ bool pair_test(const float (*s)[kPiece], int q,
+                                          const float o[3], const float d[3],
+                                          const float iv[3], float t_best,
+                                          int backface, float& t_hit) {
+  float r[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) r[i] = s[i][q];
+  bool ok = mt_accept(r, o, d, t_best, backface, t_hit);
+  if (ROOT_FILTER && ok) ok = reach_staged<kRows>(s, q, o, iv);
   return ok;
 }
 
@@ -243,6 +314,37 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Thread block clusters (sm_90): the CTA's rank in its cluster and the
+// cluster's index, a 32-bit load from the shared memory of the cluster's
+// CTA `rank` at the address of this CTA's variable `p` (distributed
+// shared memory), and the cluster-wide barrier, split into its arrive
+// (release: this thread's earlier writes, shared ones included, are
+// visible to every thread of the cluster after the wait) and its wait.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_index() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned peer_load(const void* p, unsigned rank) {
+  const unsigned local = (unsigned)__cvta_generic_to_shared(p);
+  unsigned remote, v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(remote) : "memory");
+  return v;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 struct Args {
   const float* tri;      // (Cs, 16, n_sub*tc)
   const float* cbox;     // (Cs*n_sub, 8)
@@ -250,7 +352,8 @@ struct Args {
   const int* torder;     // (n_tiles, Cs)
   const int* counts;     // (n_tiles,)
   const int* idmap;      // (2, n_pad), FUSED only
-  const int* order;      // (n_tiles,) tile schedule, the any-hit walk only
+  const int* order;      // (n_tiles,) tile schedule, heaviest first
+  const int* n_split;    // (1,) the closest walk's heavy tiles: order's first
   int* work;             // (1,) next schedule slot, zeroed, the any-hit walk
   long long* timing;     // (n_tiles, 3) [start ns, end ns, SM], TIMING only
   float* t_out;          // (rp,)
@@ -258,6 +361,7 @@ struct Args {
   int* vid_out;          // (rp,), FUSED only
   unsigned long long* counters;  // (2,) [tri_tests, box_tests], STATS only
   int n_tiles, rp, cs, n_sub, tc, n_pad, backface;
+  int cluster;           // CTAs per tile, the closest walk only
 };
 
 // ---- the tile walk: closest hit, and the any hit as it was -------------
@@ -579,27 +683,346 @@ __global__ void __launch_bounds__(kRayTile) anyhit_walk_kernel(const Args a) {
   }
 }
 
-// ---- launchers ------------------------------------------------------------
+// ---- the closest walk ----------------------------------------------------
 
-template <bool ANYHIT, bool FUSED, bool ROOT_FILTER, bool STATS, bool TIMING>
-int launch_tiles(const Args& a, cudaStream_t stream) {
-  mesh_intersect_kernel<ANYHIT, FUSED, ROOT_FILTER, STATS, TIMING>
-      <<<a.n_tiles, kRayTile, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+// Clusters of G = a.cluster CTAs (1, 2, 4 or 8; G = 1 is a plain launch)
+// of 512 threads. A heavy tile (the first n_split of order) takes a
+// cluster: rank c holds rays [c 512/G, (c+1) 512/G) of the tile, each ray
+// on G neighbouring threads that split every piece's triangles by groups
+// of four (thread k takes groups k, k + G, ...) and meet after the piece:
+// the lowest t, on a tie the lowest row, which is the row-order walk's
+// winner. Every other tile runs whole on one CTA, one ray a thread (g =
+// 1), G of them to a cluster. Every decision that shapes a tile's walk
+// (the super, the sub-chunk, the piece) is taken by all the threads that
+// share it, so they take the same steps and barriers.
+template <bool FUSED, bool ROOT_FILTER, bool STATS, bool TIMING>
+__global__ void __launch_bounds__(kRayTile, 2) closest_walk_kernel(const Args a) {
+  constexpr int kRows = ROOT_FILTER ? 15 : 9;
+  __shared__ __align__(16) float s_tri[2][kRows][kPiece];
+  __shared__ __align__(16) float s_box[2][kMaxSub][8];
+  // The exchange slots, by exchange number mod 3: this CTA's OR of its
+  // rays' live masks, and with STATS its live rays per sub-chunk.
+  __shared__ unsigned s_xmask[3];
+  __shared__ int s_xcount[STATS ? 3 : 1][kMaxSub];
+  __shared__ unsigned s_sm;  // TIMING: this CTA's SM
+
+  // Cluster c < n_split takes heavy tile order[c] and splits it (g = G);
+  // after them, each CTA of a cluster takes a tile of its own (g = 1),
+  // and CTAs past the last tile leave at once.
+  const int G = a.cluster;
+  const int tid = threadIdx.x, wl = tid & 31;
+  const unsigned rank = G > 1 ? cluster_rank() : 0u;
+  const int c_idx = G > 1 ? (int)cluster_index() : (int)blockIdx.x;
+  const int n_split = G > 1 ? *a.n_split : 0;
+  const int g = c_idx < n_split ? G : 1;
+  const long slot = g > 1 ? c_idx : n_split + (long)(c_idx - n_split) * G + rank;
+  if (slot >= a.n_tiles) return;
+  const int tile = a.order[slot];
+  const int rp = a.rp, n_sub = a.n_sub, tc = a.tc;
+  const int n_pc = tc / kPiece;
+  const long row_stride = (long)n_sub * tc;
+  long long tri_tests = 0;  // STATS: the lead thread's sum
+  if (tid == 0) {
+    for (int x = 0; x < 3; ++x) {
+      s_xmask[x] = 0;
+      if (STATS) {
+        for (int j = 0; j < kMaxSub; ++j) s_xcount[x][j] = 0;
+      }
+    }
+  }
+
+  // The rows of piece p of sub-chunk j of super sup into s_tri[b] as
+  // 16-byte copies, element e always by the same thread; a super's boxes
+  // into s_box[b] likewise.
+  auto stage_rows = [&](int sup, int j, int p, int b) {
+    const float* base = a.tri + (long)sup * 16 * row_stride + (long)j * tc + p * kPiece;
+    for (int e = tid; e < kRows * (kPiece / 4); e += kRayTile) {
+      const int row = e / (kPiece / 4), c = (e % (kPiece / 4)) * 4;
+      cp_async16(&s_tri[b][row][c], base + row * row_stride + c);
+    }
+    cp_async_commit();
+  };
+  auto stage_boxes = [&](int sup, int b) {
+    if (tid < n_sub * 2) {
+      cp_async16(&s_box[b][tid >> 1][(tid & 1) * 4],
+                 a.cbox + ((long)sup * n_sub) * 8 + tid * 4);
+    }
+    cp_async_commit();
+  };
+
+  int xe = 0;  // exchanges so far (slot xe % 3)
+  int b = 0;   // the buffer of the next unit of rows
+  const int sub = tid % g;  // this thread's share of the ray's triangles
+  const bool lead = (g == 1 || rank == 0) && tid == 0;
+  unsigned long long t_start = 0;
+  if (TIMING && lead) t_start = global_ns();
+  const long r = (long)tile * kRayTile +
+                 (g > 1 ? (long)rank * (kRayTile / g) : 0L) + tid / g;
+  float o[3], d[3], iv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    o[c] = a.aux[(long)c * rp + r];
+    d[c] = a.aux[(long)(3 + c) * rp + r];
+    iv[c] = a.aux[(long)(6 + c) * rp + r];
+  }
+  float t_best = a.aux[9L * rp + r];
+  int tri_best = -1;
+  const int n_live = a.counts[tile];
+  const int* torder = a.torder + (long)tile * a.cs;
+
+  // The super's cull, once per ray (f32 values as cull_live's): ctmin
+  // of each cull box and the bits of the boxes the ray's slab meets.
+  // While the running t only falls (a closest hit's), the ray needs
+  // sub-chunk j at a moment iff bit j of m0 is set and !(ctmin_j >= t
+  // || t < 0).
+  float ctm[kCullRegs];
+  unsigned m0 = 0;
+  auto live_mask = [&](unsigned cand) -> unsigned {
+    unsigned m = 0;
+#pragma unroll
+    for (int j = 0; j < kCullRegs; ++j) {
+      m |= (unsigned)(((cand >> j) & 1u) &&
+                      !((ctm[j] >= t_best) || (t_best < 0.0f))) << j;
+    }
+    return m & m0;
+  };
+
+  // The tile-live set of the sub-chunks in `m`'s bits: the OR of every
+  // ray's live mask over the tile, by a warp reduction, a shared atomic
+  // per warp, one barrier (the cluster's, or the CTA's at g = 1) and a
+  // load from each rank's slot; a ray counts once, on its first thread.
+  // Each thread waits for its own copies first, so after the barrier
+  // every staged row and box is visible. The slot of exchange x is
+  // zeroed during exchange x - 1 and read after the barrier of x,
+  // before the barrier of x + 1: three slots in turn keep the zeroing,
+  // the writes and the peers' reads apart.
+  auto exchange = [&](unsigned m) -> unsigned {
+    const int sl = xe % 3;
+    const unsigned wm = __reduce_or_sync(~0u, m);
+    if (STATS) {
+      for (int j = 0; j < n_sub; ++j) {
+        const int c = __popc(__ballot_sync(~0u, sub == 0 && ((m >> j) & 1u)));
+        if (wl == 0 && c) atomicAdd(&s_xcount[sl][j], c);
+      }
+    }
+    if (wl == 0 && wm) atomicOr(&s_xmask[sl], wm);
+    if (tid == 0) {
+      const int nx = (xe + 1) % 3;
+      s_xmask[nx] = 0;
+      if (STATS) {
+        for (int j = 0; j < n_sub; ++j) s_xcount[nx][j] = 0;
+      }
+    }
+    cp_async_wait_all();
+    unsigned tm = 0;
+    if (g == 1) {
+      __syncthreads();
+      tm = s_xmask[sl];
+    } else {
+      cluster_arrive();
+      cluster_wait();
+      for (int c = 0; c < g; ++c) tm |= peer_load(&s_xmask[sl], c);
+    }
+    ++xe;
+    return tm;
+  };
+  // K3's tri_tests for sub-chunk j, evaluated after the last exchange:
+  // tc x the rays of the tile live for it then.
+  auto count_tests = [&](int j) {
+    if (STATS && lead) {
+      const int sl = (xe - 1) % 3;
+      long long n = 0;
+      for (int c = 0; c < g; ++c) {
+        n += g == 1 ? s_xcount[sl][j] : (int)peer_load(&s_xcount[sl][j], c);
+      }
+      tri_tests += n * tc;
+    }
+  };
+
+  if (n_live > 0) stage_boxes(torder[0], 0);
+  for (int k = 0; k < n_live; ++k) {
+    cp_async_wait_all();
+    __syncthreads();  // this super's boxes visible; every thread done with the rest
+    const int sup = torder[k];
+    m0 = 0;
+#pragma unroll
+    for (int j = 0; j < kCullRegs; ++j) {
+      ctm[j] = 0.0f;
+      if (j < n_sub) {
+        const float* box = s_box[k & 1][j];
+        float ctmin = -kFmax, ctmax = kFmax;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float t1 = (box[c] - o[c]) * iv[c];
+          const float t2 = (box[3 + c] - o[c]) * iv[c];
+          ctmin = nan_max(ctmin, nan_min(t1, t2));
+          ctmax = nan_min(ctmax, nan_max(t1, t2));
+        }
+        const bool invalid = box[0] > box[3];
+        ctm[j] = ctmin;
+        m0 |= (unsigned)!((ctmin > ctmax) || (ctmax < 0.0f) || invalid) << j;
+      }
+    }
+    unsigned tm = exchange(live_mask(~0u));
+    if (k + 1 < n_live) stage_boxes(torder[k + 1], (k + 1) & 1);
+    int j = tm ? __ffs(tm) - 1 : -1;
+    if (j < 0) continue;
+    count_tests(j);
+    stage_rows(sup, j, 0, b);
+    bool fresh = true;  // the rows of the unit need a wait and a barrier
+    int p = 0;
+    for (;;) {
+      if (fresh) {
+        cp_async_wait_all();
+        __syncthreads();  // the unit's rows visible; every thread done with b ^ 1
+      }
+      // Prefetch the next unit while this one computes: the next piece,
+      // or the first piece of the next sub-chunk live so far (it may
+      // turn dead by the time it is reached).
+      int nj = j, np = p + 1;
+      if (np == n_pc) {
+        const unsigned rest = tm & ~((2u << j) - 1u);
+        nj = rest ? __ffs(rest) - 1 : -1;
+        np = 0;
+      }
+      if (nj >= 0) stage_rows(sup, nj, np, b ^ 1);
+      // A resolved ray (t_best < 0) or a NaN one accepts nothing. Rows
+      // are read four triangles at a time (16-byte shared loads; the g
+      // threads of a ray read neighbouring groups, in distinct banks);
+      // the accept test goes in row order within the thread's share.
+      const int base = (sup * n_sub + j) * tc + p * kPiece;
+      if (t_best >= 0.0f) {
+        const float (*s)[kPiece] = s_tri[b];
+        for (int q = 4 * sub; q < kPiece; q += 4 * g) {
+          float rows[9][4];
+#pragma unroll
+          for (int i = 0; i < 9; ++i) {
+            const float4 x = *reinterpret_cast<const float4*>(&s[i][q]);
+            rows[i][0] = x.x;
+            rows[i][1] = x.y;
+            rows[i][2] = x.z;
+            rows[i][3] = x.w;
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float tri[9] = {rows[0][u], rows[1][u], rows[2][u],
+                                  rows[3][u], rows[4][u], rows[5][u],
+                                  rows[6][u], rows[7][u], rows[8][u]};
+            float t;
+            bool ok = mt_accept(tri, o, d, t_best, a.backface, t);
+            if (ROOT_FILTER && ok) ok = reach_staged<kRows>(s, q + u, o, iv);
+            if (ok) {
+              t_best = t;
+              tri_best = base + q + u;
+            }
+          }
+        }
+      }
+      // The ray's g threads meet: the lowest t, on a tie the lowest row.
+      // A thread that accepted nothing holds the piece's starting t and
+      // id, which every accepted hit beats strictly.
+      for (int off = 1; off < g; off <<= 1) {
+        const float t_o = __shfl_xor_sync(~0u, t_best, off);
+        const int id_o = __shfl_xor_sync(~0u, tri_best, off);
+        if (t_o < t_best || (t_o == t_best && id_o < tri_best)) {
+          t_best = t_o;
+          tri_best = id_o;
+        }
+      }
+      b ^= 1;
+      if (np > 0) {  // the next piece of the same sub-chunk
+        p = np;
+        fresh = true;
+        continue;
+      }
+      // Sub-chunk j is done. Liveness only falls, so the candidates are
+      // the tile-live ones after j; with none left the super is done.
+      const unsigned cand = tm & ~((2u << j) - 1u);
+      if (cand == 0) break;
+      tm = exchange(live_mask(cand)) & cand;
+      const int next = tm ? __ffs(tm) - 1 : -1;
+      if (next < 0) break;
+      count_tests(next);
+      // The exchange's barrier made the prefetched rows visible; if the
+      // prefetched sub-chunk turned dead, load the live one there.
+      fresh = next != nj;
+      if (fresh) stage_rows(sup, next, 0, b);
+      j = next;
+      p = 0;
+    }
+  }
+  cp_async_wait_all();
+  if (sub == 0 && FUSED) {
+    const bool found = tri_best >= 0;
+    a.t_out[r] = found ? t_best : kFmax;
+    a.tri_out[r] = found ? a.idmap[tri_best] : -1;
+    a.vid_out[r] = found ? a.idmap[(long)a.n_pad + tri_best] : 0;
+  } else if (sub == 0) {
+    a.t_out[r] = t_best;
+    a.tri_out[r] = tri_best;
+  }
+  if (STATS && lead) {
+    atomicAdd(&a.counters[0], (unsigned long long)tri_tests);
+    atomicAdd(&a.counters[1], (unsigned long long)n_live * n_sub * kRayTile);
+  }
+  // TIMING: the SMs the cluster's CTAs ran on; rank 0's id, and the
+  // number of distinct ones above bit 16.
+  int n_sms = 1;
+  if (TIMING && g > 1) {
+    if (tid == 0) s_sm = sm_id();
+    cluster_arrive();
+    cluster_wait();
+    if (lead) {
+      unsigned seen[8];
+      n_sms = 0;
+      for (int c = 0; c < g; ++c) {
+        const unsigned sm = peer_load(&s_sm, c);
+        bool dup = false;
+        for (int x = 0; x < n_sms; ++x) dup = dup || seen[x] == sm;
+        if (!dup) seen[n_sms++] = sm;
+      }
+    }
+  }
+  // No CTA of a split tile leaves while a peer may still read its slots.
+  if (g > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else if (TIMING) {
+    __syncthreads();
+  }
+  if (TIMING && lead) {
+    a.timing[3L * tile] = (long long)t_start;
+    a.timing[3L * tile + 1] = (long long)global_ns();
+    a.timing[3L * tile + 2] = (long long)sm_id() | ((long long)n_sms << 16);
+  }
 }
 
-template <bool ANYHIT, bool FUSED, bool TIMING>
-int launch_variant(const Args& a, int root_filter, int stats, cudaStream_t s) {
-  if (root_filter) {
-    return stats ? launch_tiles<ANYHIT, FUSED, true, true, TIMING>(a, s)
-                 : launch_tiles<ANYHIT, FUSED, true, false, TIMING>(a, s);
-  }
-  return stats ? launch_tiles<ANYHIT, FUSED, false, true, TIMING>(a, s)
-               : launch_tiles<ANYHIT, FUSED, false, false, TIMING>(a, s);
+// ---- launchers ------------------------------------------------------------
+
+// The tile walk's kernel for its flags (the fused any hit has none: an
+// any hit over fused tables is the single-mesh walk over their geometry).
+using WalkFn = void (*)(const Args);
+template <bool ANYHIT, bool FUSED>
+WalkFn tile_walk_variant(int root_filter, int stats, int timing) {
+  const WalkFn fns[8] = {
+      mesh_intersect_kernel<ANYHIT, FUSED, false, false, false>,
+      mesh_intersect_kernel<ANYHIT, FUSED, false, false, true>,
+      mesh_intersect_kernel<ANYHIT, FUSED, false, true, false>,
+      mesh_intersect_kernel<ANYHIT, FUSED, false, true, true>,
+      mesh_intersect_kernel<ANYHIT, FUSED, true, false, false>,
+      mesh_intersect_kernel<ANYHIT, FUSED, true, false, true>,
+      mesh_intersect_kernel<ANYHIT, FUSED, true, true, false>,
+      mesh_intersect_kernel<ANYHIT, FUSED, true, true, true>};
+  return fns[(root_filter ? 4 : 0) + (stats ? 2 : 0) + (timing ? 1 : 0)];
+}
+WalkFn tile_walk_kernel(int anyhit, int fused, int root_filter, int stats,
+                        int timing) {
+  if (anyhit) return tile_walk_variant<true, false>(root_filter, stats, timing);
+  return fused ? tile_walk_variant<false, true>(root_filter, stats, timing)
+               : tile_walk_variant<false, false>(root_filter, stats, timing);
 }
 
 // The any-hit walk's kernel for its flags.
-using WalkFn = void (*)(const Args);
 WalkFn walk_kernel(int root_filter, int stats, int timing) {
   const WalkFn fns[8] = {
       anyhit_walk_kernel<false, false, false>, anyhit_walk_kernel<false, false, true>,
@@ -635,6 +1058,100 @@ int walk_grid(WalkFn fn, int variant, int per_sm, int n_tiles) {
   return n < n_tiles ? (int)n : n_tiles;
 }
 
+// The closest walk's kernel for its flags.
+WalkFn closest_kernel(int fused, int root_filter, int stats, int timing) {
+  const int v = (fused ? 8 : 0) + (root_filter ? 4 : 0) + (stats ? 2 : 0) +
+                (timing ? 1 : 0);
+  const WalkFn fns[16] = {
+      closest_walk_kernel<false, false, false, false>,
+      closest_walk_kernel<false, false, false, true>,
+      closest_walk_kernel<false, false, true, false>,
+      closest_walk_kernel<false, false, true, true>,
+      closest_walk_kernel<false, true, false, false>,
+      closest_walk_kernel<false, true, false, true>,
+      closest_walk_kernel<false, true, true, false>,
+      closest_walk_kernel<false, true, true, true>,
+      closest_walk_kernel<true, false, false, false>,
+      closest_walk_kernel<true, false, false, true>,
+      closest_walk_kernel<true, false, true, false>,
+      closest_walk_kernel<true, false, true, true>,
+      closest_walk_kernel<true, true, false, false>,
+      closest_walk_kernel<true, true, false, true>,
+      closest_walk_kernel<true, true, true, false>,
+      closest_walk_kernel<true, true, true, true>};
+  return fns[v];
+}
+
+// The launch configuration of the closest walk: n clusters of g CTAs of
+// 512 threads (g = 1: no cluster attribute).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int n, int g, cudaStream_t s) : cfg{}, attr{} {
+    cfg.gridDim = dim3((unsigned)(n * g));
+    cfg.blockDim = dim3((unsigned)kRayTile);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)g;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = g > 1 ? 1 : 0;
+  }
+};
+
+// Clusters of `g` CTAs of the closest walk's kernel `fn` resident at once
+// on the current card (cudaOccupancyMaxActiveClusters; at g = 1 the CTAs
+// per SM times the SMs), or a negative CUDA error.
+int resident_clusters(WalkFn fn, int g) {
+  int n = 0;
+  cudaError_t err;
+  if (g > 1) {
+    ClusterLaunch l(1, g, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&n, (const void*)fn, &l.cfg);
+  } else {
+    int dev = 0, per_sm = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kRayTile, 0);
+    }
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    n = per_sm * sms;
+  }
+  return err != cudaSuccess ? -(int)err : n;
+}
+
+// Launches the closest walk: n_tiles clusters of g CTAs (the ones past
+// the last tile leave at once). A cluster that cannot be resident (its
+// CTAs must fit one GPC at once) or a refused launch returns the CUDA
+// error; nothing falls back.
+int launch_closest(const Args& a, int fused, int root_filter, int stats,
+                   int timing, cudaStream_t s) {
+  const int g = a.cluster;
+  const WalkFn fn = closest_kernel(fused, root_filter, stats, timing);
+  constexpr int kMaxDevices = 64;
+  static bool fits[kMaxDevices][16][9];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const int v = (fused ? 8 : 0) + (root_filter ? 4 : 0) + (stats ? 2 : 0) +
+                (timing ? 1 : 0);
+  if (!fits[dev][v][g]) {
+    const int n = resident_clusters(fn, g);
+    if (n < 0) return -n;
+    if (n < 1) return (int)cudaErrorLaunchOutOfResources;
+    fits[dev][v][g] = true;
+  }
+  ClusterLaunch l(a.n_tiles, g, s);
+  err = cudaLaunchKernelEx(&l.cfg, fn, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 int check_shapes(int n_tiles, int rp, int n_sub, int tc) {
   if (n_sub < 1 || n_sub > kMaxSub || tc < kPiece || tc % kPiece != 0 ||
       rp != n_tiles * kRayTile) {
@@ -658,34 +1175,45 @@ extern "C" {
 //   anyhit=0, fused=1: fused closest hit (K5), (t, mesh sub index,
 //     global gather column) through idmap (2, n_pad); (FLT_MAX, -1, 0)
 //     on a miss.
+// A closest hit runs the closest walk (closest_walk_kernel), which splits
+// the first n_split (a (1,) int32 on the card) tiles of `order` over a
+// cluster each and runs the others whole.
 // root_filter=1 adds the reach-box slab (table rows 9-14); stats=1 adds
 // [tri_tests, box_tests] into counters (2,) u64, which the caller zeroes.
 // timing, when not null, takes (n_tiles, 3) int64 per-tile records [start
-// ns, end ns, SM id] of the any hit (its TIMING variant). ctas_per_sm
-// sets the any-hit walk's persistent grid: that many CTAs on every SM, 0
-// for as many as fit.
+// ns, end ns, SM id] (the TIMING variant; the closest walk adds the number
+// of distinct SMs its cluster ran on above bit 16). ctas_per_sm sets the
+// any-hit walk's persistent grid (that many CTAs on every SM, 0 for as
+// many as fit). cluster is the closest walk's CTAs per cluster (1, 2, 4
+// or 8), which takes n_sub <= 8; its tri and cbox must be 16-byte
+// aligned.
 int rt_intersect(const void* tri, const void* cbox, const void* aux,
                  const void* torder, const void* counts, const void* idmap,
-                 const void* order, void* work, void* timing,
+                 const void* order, const void* n_split, void* work,
+                 void* timing,
                  void* t_out, void* tri_out, void* vid_out, void* counters,
                  int n_tiles, int rp, int cs, int n_sub, int tc, int n_pad,
                  int backface, int anyhit, int fused, int root_filter,
-                 int stats, int ctas_per_sm, void* stream) {
+                 int stats, int ctas_per_sm, int cluster, void* stream) {
   if (check_shapes(n_tiles, rp, n_sub, tc) || (anyhit && fused) ||
       (fused && n_pad != cs * n_sub * tc) ||
       (fused && (idmap == nullptr || vid_out == nullptr)) ||
-      (stats && counters == nullptr) || (timing && !anyhit) ||
-      (anyhit && (order == nullptr || work == nullptr ||
-                  (reinterpret_cast<size_t>(tri) & 15) != 0))) {
+      (stats && counters == nullptr) || order == nullptr ||
+      (anyhit && work == nullptr) || (!anyhit && n_split == nullptr) ||
+      (reinterpret_cast<size_t>(tri) & 15) != 0 ||
+      (!anyhit && ((reinterpret_cast<size_t>(cbox) & 15) != 0 ||
+                   n_sub > kCullRegs ||
+                   (cluster != 1 && cluster != 2 && cluster != 4 &&
+                    cluster != 8)))) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_tiles == 0) return 0;
-  const Args a{(const float*)tri, (const float*)cbox, (const float*)aux,
-               (const int*)torder, (const int*)counts, (const int*)idmap,
-               (const int*)order, (int*)work, (long long*)timing,
-               (float*)t_out, (int*)tri_out, (int*)vid_out,
-               (unsigned long long*)counters,
-               n_tiles, rp, cs, n_sub, tc, n_pad, backface};
+  Args a{(const float*)tri, (const float*)cbox, (const float*)aux,
+         (const int*)torder, (const int*)counts, (const int*)idmap,
+         (const int*)order, (const int*)n_split, (int*)work,
+         (long long*)timing, (float*)t_out, (int*)tri_out, (int*)vid_out,
+         (unsigned long long*)counters,
+         n_tiles, rp, cs, n_sub, tc, n_pad, backface};
   const cudaStream_t s = (cudaStream_t)stream;
   if (anyhit) {
     const int variant = (root_filter ? 4 : 0) + (stats ? 2 : 0) + (timing ? 1 : 0);
@@ -695,48 +1223,55 @@ int rt_intersect(const void* tri, const void* cbox, const void* aux,
     fn<<<grid, kRayTile, 0, s>>>(a);
     return (int)cudaGetLastError();
   }
-  if (fused) return launch_variant<false, true, false>(a, root_filter, stats, s);
-  return launch_variant<false, false, false>(a, root_filter, stats, s);
+  a.cluster = cluster;
+  return launch_closest(a, fused, root_filter, stats, timing != nullptr, s);
 }
 
-// The any hit as the tile walk (one CTA per tile in tile order), kept to
-// be timed against the any-hit walk; same arguments and results as
-// rt_intersect with anyhit=1 (order and work are not used).
-int rt_anyhit_tile_walk(const void* tri, const void* cbox, const void* aux,
-                        const void* torder, const void* counts, void* timing,
-                        void* t_out, void* tri_out, void* counters,
-                        int n_tiles, int rp, int cs, int n_sub, int tc,
-                        int backface, int root_filter, int stats, void* stream) {
-  if (check_shapes(n_tiles, rp, n_sub, tc) || (stats && counters == nullptr)) {
+// The tile walk (one CTA per tile in tile order): the any hit as it was
+// before the any-hit walk, and the closest hit as it was before the
+// closest walk, kept to be timed against them. Same arguments and
+// results as rt_intersect (anyhit=1 takes no fused tables; order,
+// n_split and work are not used).
+int rt_tile_walk(const void* tri, const void* cbox, const void* aux,
+                 const void* torder, const void* counts, const void* idmap,
+                 void* timing, void* t_out, void* tri_out, void* vid_out,
+                 void* counters, int n_tiles, int rp, int cs, int n_sub,
+                 int tc, int n_pad, int backface, int anyhit, int fused,
+                 int root_filter, int stats, void* stream) {
+  if (check_shapes(n_tiles, rp, n_sub, tc) || (anyhit && fused) ||
+      (fused && n_pad != cs * n_sub * tc) ||
+      (fused && (idmap == nullptr || vid_out == nullptr)) ||
+      (stats && counters == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_tiles == 0) return 0;
   const Args a{(const float*)tri, (const float*)cbox, (const float*)aux,
-               (const int*)torder, (const int*)counts, nullptr, nullptr,
-               nullptr, (long long*)timing, (float*)t_out, (int*)tri_out,
-               nullptr, (unsigned long long*)counters,
-               n_tiles, rp, cs, n_sub, tc, 0, backface};
-  const cudaStream_t s = (cudaStream_t)stream;
-  return timing ? launch_variant<true, false, true>(a, root_filter, stats, s)
-                : launch_variant<true, false, false>(a, root_filter, stats, s);
+               (const int*)torder, (const int*)counts, (const int*)idmap,
+               nullptr, nullptr, nullptr, (long long*)timing, (float*)t_out,
+               (int*)tri_out, (int*)vid_out, (unsigned long long*)counters,
+               n_tiles, rp, cs, n_sub, tc, n_pad, backface};
+  const WalkFn fn = tile_walk_kernel(anyhit, fused, root_filter, stats,
+                                     timing != nullptr);
+  fn<<<n_tiles, kRayTile, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-// Resources of an any-hit kernel (walk=1 the any-hit walk, 0 the tile
-// walk): out[0..4] = resident CTAs per SM at 512 threads, registers per
-// thread, local (spill) bytes per thread, static shared bytes, SMs.
-int rt_anyhit_resources(int walk, int root_filter, int stats, int* out) {
-  const void* fn;
-  if (walk) {
-    fn = (const void*)walk_kernel(root_filter, stats, 0);
-  } else if (root_filter) {
-    fn = stats ? (const void*)mesh_intersect_kernel<true, false, true, true, false>
-               : (const void*)mesh_intersect_kernel<true, false, true, false, false>;
-  } else {
-    fn = stats ? (const void*)mesh_intersect_kernel<true, false, false, true, false>
-               : (const void*)mesh_intersect_kernel<true, false, false, false, false>;
+// Resources of a kernel variant (walk=1 the any-hit walk or the closest
+// walk, 0 the tile walk): out[0..4] = resident CTAs per SM at 512
+// threads, registers per thread, local (spill) bytes per thread, static
+// shared bytes, SMs; out[5] = clusters of `cluster` CTAs of the closest
+// walk resident at once on the card (0 for the other kernels).
+int rt_resources(int walk, int anyhit, int fused, int root_filter, int stats,
+                 int cluster, int* out) {
+  if ((anyhit && fused) || cluster < 1 || cluster > 8) {
+    return (int)cudaErrorInvalidValue;
   }
+  const bool closest = walk && !anyhit;
+  const WalkFn fn = walk ? (anyhit ? walk_kernel(root_filter, stats, 0)
+                                   : closest_kernel(fused, root_filter, stats, 0))
+                         : tile_walk_kernel(anyhit, fused, root_filter, stats, 0);
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  cudaError_t err = cudaFuncGetAttributes(&attr, (const void*)fn);
   int dev = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -748,6 +1283,12 @@ int rt_anyhit_resources(int walk, int root_filter, int stats, int* out) {
   out[1] = attr.numRegs;
   out[2] = (int)attr.localSizeBytes;
   out[3] = (int)attr.sharedSizeBytes;
+  out[5] = 0;
+  if (err == cudaSuccess && closest) {
+    const int n = resident_clusters(fn, cluster);
+    if (n < 0) return -n;
+    out[5] = n;
+  }
   return (int)err;
 }
 

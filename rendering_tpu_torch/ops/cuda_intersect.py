@@ -22,12 +22,16 @@ They are bound by f32 operations (57 instructions per ray-triangle pair,
 each issued alone under -fmad=false; the tables are only ~16 MB at 250k
 triangles), so the design keeps triangle rows in shared memory for a
 whole 512-ray tile, culls sub-chunks against each ray's running t, and
-skips resolved rays. Closest hits run the tile walk (one CTA per tile);
-every any hit runs the any-hit walk, which evaluates the same pairs with
-the unresolved rays packed into the lowest lanes, a persistent grid of
-one CTA per SM that takes the tiles heaviest first (`tile_order`), and
-its row staging overlapped with compute. The any hit of the tile walk
-(`*_tile_walk*` in `KERNELS`) stays only to be timed against it. The
+skips resolved rays. Every closest hit runs the closest walk: tiles
+heaviest first, a heavy tile (`tile_schedule`) split over a thread block
+cluster of CLOSEST_CLUSTER CTAs that agree on its live sub-chunks
+through distributed shared memory, each ray's triangles shared by as
+many threads, the other tiles whole on one CTA each. Every any hit runs
+the any-hit walk, which evaluates the same pairs with the unresolved
+rays packed into the lowest lanes, a persistent grid of one CTA per SM
+that takes the tiles heaviest first, and its row staging overlapped
+with compute. The tile walk (one CTA per tile in tile order) of both
+(`*_tile_walk*` in `KERNELS`) stays only to be timed against them. The
 source file's header says more; `intersect_plain`'s stats count the work
 each walk issues.
 
@@ -37,7 +41,9 @@ Pipeline of one query (`closest_hit` / `any_hit`):
              512-ray tile, the live super chunks in near-to-far order
              (tile_tables: an exact per-ray slab test of every super
              AABB, any() over the tile — the JAX package's XLA pre-pass,
-             plain torch here on every device).
+             plain torch here on every device), and the walks' tile
+             schedule (tile_schedule: heaviest first, the heavy tiles
+             counted).
   kernel     walks each tile's live list (CUDA tensors) — or the plain
              version (CPU tensors): the TPU formulation vectorised over
              tiles, which the CPU tests hold against the Pallas kernel
@@ -67,6 +73,7 @@ from rendering_tpu_torch.utils import nvcc
 RAY_TILE = 512              # rays per kernel CTA and per pre-pass tile
 SUB_PER_SUPER = 8           # cull chunks per super chunk
 _PIECE = 64                 # the kernel stages triangles 64 at a time
+_CULL_REGS = 8              # the closest walk's cull chunks a super, at most
 _PREPASS_ELEMS = 1 << 24    # bound on (tiles, 512, Cs) pre-pass temporaries
 _PLAIN_TILES = 64           # tiles per batch of the plain version on the CPU
 # On a card the plain version's time is its Python loop (~30 launches per
@@ -78,6 +85,18 @@ _PLAIN_ELEMS_CUDA = 1 << 24
 # every kept query took 0.65-0.95x the time of two CTAs per SM, as many
 # as fit; PERF.md).
 WALK_CTAS_PER_SM = 1
+# The closest walk's CTAs per cluster (a heavy tile split over them; 8 is
+# the portable cluster limit), and the sizes it takes. 4 by measurement on
+# an H100: with SPLIT_FACTOR 2 every kept closest query ran faster than on
+# the tile walk in turns, and the bouncing frame's closest hits took the
+# least kernel time (PERF.md, PR 8).
+CLUSTER_SIZES = (1, 2, 4, 8)
+CLOSEST_CLUSTER = 4
+# A tile is heavy, and the closest walk splits it over a cluster, when its
+# live-super count is at least this many times the query's mean (0 splits
+# every tile with a live super: on the flagship's even tiles that cost
+# 1.3x, their per-super latency outgrowing the split compute).
+SPLIT_FACTOR = 2
 
 SOURCE = os.path.join(nvcc.CSRC, "mesh_intersect.cu")
 
@@ -324,24 +343,49 @@ def tile_tables(ro_t, inv_t, t0_t, sbox):
 
 @dataclasses.dataclass
 class Prepared:
-    """A query ready for the kernel: padded ray rows and visit tables."""
+    """A query ready for the kernel: padded ray rows, visit tables and
+    the walks' tile schedule (`tile_schedule`)."""
 
     aux: torch.Tensor      # (10, Rp) f32 rows ro xyz, rd xyz, 1/rd xyz, t0
     torder: torch.Tensor   # (n_tiles, Cs) int32
     counts: torch.Tensor   # (n_tiles,) int32
     n_rays: int            # R before padding
+    order: torch.Tensor    # (n_tiles,) int32, heaviest tile first
+    n_split: torch.Tensor  # (1,) int32: the first n_split of order are heavy
 
     @property
     def n_tiles(self) -> int:
         return self.counts.shape[0]
 
 
+def tile_order(counts: torch.Tensor) -> torch.Tensor:
+    """The walks' tile order: tiles by live-super count, heaviest first,
+    ties in tile order (a stable sort on the device; no host sync). Tiles
+    are independent, so the order changes no result."""
+    return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
+
+
+def tile_schedule(counts: torch.Tensor, split_factor: int | None = None):
+    """The walks' tile schedule from the live-super counts, on the
+    counts' device without a host sync: (order, n_split). order
+    (`tile_order`) takes the tiles heaviest first; the first n_split of
+    them are heavy, their count at least `split_factor` (default
+    SPLIT_FACTOR) times the mean and above 0, and the closest walk splits
+    each over a cluster, while the others run whole on one CTA each.
+    Neither changes a result."""
+    if split_factor is None:
+        split_factor = SPLIT_FACTOR
+    c = counts.to(torch.int64)
+    heavy = (c * c.numel() >= split_factor * c.sum()) & (c > 0)
+    return tile_order(counts), heavy.sum(dim=0, keepdim=True).to(torch.int32)
+
+
 @torch.no_grad()
 def prepare(tb: IntersectTables, ro3, rd3, t_limit=None) -> Prepared:
-    """Pad rays to whole 512-ray tiles and run the pre-pass. Padded lanes
-    have ro = 0, rd = 1 and t0 = -1 (born resolved), as at
-    `pallas_intersect.py:768-783`; 1/rd is computed here, outside the
-    kernel."""
+    """Pad rays to whole 512-ray tiles and run the pre-pass (the visit
+    tables and the walks' tile schedule). Padded lanes have ro = 0, rd = 1
+    and t0 = -1 (born resolved), as at `pallas_intersect.py:768-783`; 1/rd
+    is computed here, outside the kernel."""
     R = ro3.shape[1]
     n_tiles = -(-R // RAY_TILE)
     rp = n_tiles * RAY_TILE
@@ -361,7 +405,9 @@ def prepare(tb: IntersectTables, ro3, rd3, t_limit=None) -> Prepared:
         t0.reshape(n_tiles, RAY_TILE),
         tb.sbox,
     )
-    return Prepared(aux, torder.contiguous(), counts.contiguous(), R)
+    counts = counts.contiguous()
+    return Prepared(aux, torder.contiguous(), counts, R,
+                    *tile_schedule(counts))
 
 
 # ---- plain PyTorch version --------------------------------------------
@@ -549,23 +595,16 @@ def _library():
         path, _ = nvcc.build_library(SOURCE)
         lib = ctypes.CDLL(path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rt_intersect.argtypes = [ptr] * 13 + [i32] * 12 + [ptr]
+        lib.rt_intersect.argtypes = [ptr] * 14 + [i32] * 13 + [ptr]
         lib.rt_intersect.restype = ctypes.c_int
-        lib.rt_anyhit_tile_walk.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
-        lib.rt_anyhit_tile_walk.restype = ctypes.c_int
-        lib.rt_anyhit_resources.argtypes = [i32] * 3 + [ptr]
-        lib.rt_anyhit_resources.restype = ctypes.c_int
+        lib.rt_tile_walk.argtypes = [ptr] * 11 + [i32] * 11 + [ptr]
+        lib.rt_tile_walk.restype = ctypes.c_int
+        lib.rt_resources.argtypes = [i32] * 6 + [ptr]
+        lib.rt_resources.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
-
-
-def tile_order(counts: torch.Tensor) -> torch.Tensor:
-    """The any-hit walk's tile schedule: tiles by live-super count,
-    heaviest first, ties in tile order (a stable sort on the device; no
-    host sync). Tiles are independent, so the order changes no result."""
-    return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -573,11 +612,11 @@ class CudaKernel:
     """One variant of csrc/mesh_intersect.cu's kernels: closest or any
     hit, over one mesh's tables or fused ones (the fused closest hit
     remaps through the idmap), with or without the root filter (K4) and
-    the counters (K3). An any hit launches the any-hit walk
-    (`anyhit_walk_kernel`); `tile_walk` marks the any hit as the tile walk
-    it replaced, which no render, train or CLI path launches (it stays to
-    be timed against the any-hit walk). `launches` counts the launches
-    made through it."""
+    the counters (K3). A closest hit launches the closest walk
+    (`closest_walk_kernel`), an any hit the any-hit walk
+    (`anyhit_walk_kernel`); `tile_walk` marks the tile walk they replaced,
+    which no render, train or CLI path launches (it stays to be timed
+    against them). `launches` counts the launches made through it."""
 
     name: str
     anyhit: bool
@@ -591,29 +630,32 @@ class CudaKernel:
     def __call__(self, tb: IntersectTables, prep: Prepared, *,
                  backface_culling: bool, idmap: torch.Tensor | None = None,
                  timing: torch.Tensor | None = None,
-                 ctas_per_sm: int = WALK_CTAS_PER_SM):
+                 ctas_per_sm: int = WALK_CTAS_PER_SM,
+                 cluster: int = CLOSEST_CLUSTER):
         """Raw (t (Rp,), tri (Rp,) int32) in padded chunk-space ids; the
         fused closest hit returns (t, mid, vid) through idmap instead,
         with t = FMAX, mid = -1 and vid = 0 on a miss. With the counters
         the tuple ends in box_tests, tri_tests (int64 0-d tensors).
-        `timing`, an any hit's (n_tiles, 3) int64 CUDA tensor, receives
-        each tile's [start ns, end ns, SM id] (the kernel's TIMING
-        variant). `ctas_per_sm` sets the any-hit walk's grid (0: as many
-        as fit), for measuring it against the constant."""
+        `timing`, an (n_tiles, 3) int64 CUDA tensor, receives each
+        tile's [start ns, end ns, SM id] (the kernel's TIMING variant).
+        `ctas_per_sm` sets the any-hit walk's grid (0: as many as fit)
+        and `cluster` the closest walk's CTAs per cluster
+        (CLUSTER_SIZES), for measuring them against their constants; the
+        closest walk splits the heavy tiles of `prep` (`tile_schedule`)."""
         remap = self.fused and not self.anyhit
         aux = prep.aux
         checks = [("tri", tb.tri, torch.float32),
                   ("cbox", tb.cbox, torch.float32),
                   ("aux", aux, torch.float32),
                   ("torder", prep.torder, torch.int32),
-                  ("counts", prep.counts, torch.int32)]
+                  ("counts", prep.counts, torch.int32),
+                  ("order", prep.order, torch.int32),
+                  ("n_split", prep.n_split, torch.int32)]
         if remap:
             if idmap is None:
                 raise ValueError(f"{self.name}: needs the fused idmap")
             checks.append(("idmap", idmap, torch.int32))
         if timing is not None:
-            if not self.anyhit:
-                raise ValueError(f"{self.name}: only an any hit records tiles")
             checks.append(("timing", timing, torch.int64))
         for name, x, dt in checks:
             if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
@@ -623,8 +665,17 @@ class CudaKernel:
         if tb.tri_chunk % _PIECE:
             raise ValueError(f"{self.name}: tri_chunk must be a multiple of "
                              f"{_PIECE}, got {tb.tri_chunk}")
-        if self.anyhit and tb.tri.data_ptr() % 16:
-            raise ValueError(f"{self.name}: tri must be 16-byte aligned")
+        if not self.tile_walk and (tb.tri.data_ptr() % 16
+                                   or tb.cbox.data_ptr() % 16):
+            raise ValueError(f"{self.name}: tri and cbox must be 16-byte "
+                             f"aligned")
+        if not self.anyhit and cluster not in CLUSTER_SIZES:
+            raise ValueError(f"{self.name}: cluster must be one of "
+                             f"{CLUSTER_SIZES}, got {cluster}")
+        if not self.anyhit and not self.tile_walk and tb.n_sub > _CULL_REGS:
+            raise ValueError(f"{self.name}: the closest walk takes at most "
+                             f"{_CULL_REGS} cull chunks a super, got "
+                             f"{tb.n_sub}")
         cs = tb.sbox.shape[0]
         n_pad = cs * tb.n_sub * tb.tri_chunk
         if remap and tuple(idmap.shape) != (2, n_pad):
@@ -648,27 +699,29 @@ class CudaKernel:
         with torch.cuda.device(dev):  # launch on the tensors' card
             stream = torch.cuda.current_stream(dev).cuda_stream
             if self.tile_walk:
-                rc = lib.rt_anyhit_tile_walk(
+                rc = lib.rt_tile_walk(
                     tb.tri.data_ptr(), tb.cbox.data_ptr(), aux.data_ptr(),
                     prep.torder.data_ptr(), prep.counts.data_ptr(),
-                    ptr(timing), outs[0].data_ptr(), outs[1].data_ptr(),
-                    ptr(counters), prep.n_tiles, rp, cs, tb.n_sub,
-                    tb.tri_chunk, int(backface_culling),
+                    ptr(idmap if remap else None), ptr(timing),
+                    outs[0].data_ptr(), outs[1].data_ptr(),
+                    ptr(outs[2] if remap else None), ptr(counters),
+                    prep.n_tiles, rp, cs, tb.n_sub, tb.tri_chunk, n_pad,
+                    int(backface_culling), int(self.anyhit), int(remap),
                     int(self.root_filter), int(self.collect_stats), stream)
             else:
-                order = tile_order(prep.counts) if self.anyhit else None
                 work = (torch.zeros((1,), dtype=torch.int32, device=dev)
                         if self.anyhit else None)
                 rc = lib.rt_intersect(
                     tb.tri.data_ptr(), tb.cbox.data_ptr(), aux.data_ptr(),
                     prep.torder.data_ptr(), prep.counts.data_ptr(),
-                    ptr(idmap if remap else None), ptr(order), ptr(work),
+                    ptr(idmap if remap else None), prep.order.data_ptr(),
+                    prep.n_split.data_ptr(), ptr(work),
                     ptr(timing), outs[0].data_ptr(), outs[1].data_ptr(),
                     ptr(outs[2] if remap else None), ptr(counters),
                     prep.n_tiles, rp, cs, tb.n_sub, tb.tri_chunk, n_pad,
                     int(backface_culling), int(self.anyhit), int(remap),
                     int(self.root_filter), int(self.collect_stats),
-                    ctas_per_sm, stream)
+                    ctas_per_sm, cluster, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: "
                                f"{lib.rt_error_string(rc).decode()}")
@@ -697,7 +750,7 @@ _FLAGS = ("anyhit", "fused", "root_filter", "collect_stats")
 # fused tables, counted apart from the single-mesh one; so are the two
 # launches of each two-phase shadow query (K6, `any_hit_two_phase`),
 # which run the single-mesh any hit over super ranges of the tables, and
-# the tile walk's any hit (`any_hit_tile_walk*`).
+# the tile walk's any hit and closest hits (`*_tile_walk*`).
 KERNELS = {
     variant_name(**kw): CudaKernel(variant_name(**kw), **kw)
     for kw in [dict(zip(_FLAGS, flags))
@@ -706,6 +759,9 @@ KERNELS = {
             **{mode: True})
        for mode in ("two_phase", "tile_walk")
        for rf, cs in itertools.product((False, True), repeat=2)]
+    + [dict(anyhit=False, fused=f, root_filter=rf, collect_stats=cs,
+            tile_walk=True)
+       for f, rf, cs in itertools.product((False, True), repeat=3)]
 }
 closest_hit_kernel = KERNELS["closest_hit"]
 any_hit_kernel = KERNELS["any_hit"]
@@ -713,20 +769,24 @@ fused_closest_hit_kernel = KERNELS["fused_closest_hit"]
 fused_any_hit_kernel = KERNELS["fused_any_hit"]
 
 
-def anyhit_resources(*, tile_walk: bool, root_filter: bool,
-                     collect_stats: bool) -> dict:
-    """An any-hit kernel's resources on the current card: resident CTAs
-    per SM at 512 threads (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+def resources(name: str, *, cluster: int = CLOSEST_CLUSTER) -> dict:
+    """Kernel variant `name`'s resources on the current card: resident
+    CTAs per SM at its block size (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     registers and local (spill) bytes per thread, static shared bytes,
-    and the card's SM count."""
-    out = (ctypes.c_int * 5)()
-    rc = _library().rt_anyhit_resources(int(not tile_walk), int(root_filter),
-                                        int(collect_stats), out)
+    the card's SM count, and for the closest walk at `cluster` CTAs per
+    tile the clusters resident at once (cudaOccupancyMaxActiveClusters;
+    0 for the other kernels)."""
+    k = KERNELS[name]
+    out = (ctypes.c_int * 6)()
+    rc = _library().rt_resources(int(not k.tile_walk), int(k.anyhit),
+                                 int(k.fused and not k.anyhit),
+                                 int(k.root_filter), int(k.collect_stats),
+                                 cluster, out)
     if rc != 0:
-        raise RuntimeError(f"rt_anyhit_resources failed: "
+        raise RuntimeError(f"rt_resources failed: "
                            f"{_library().rt_error_string(rc).decode()}")
     return dict(zip(("ctas_per_sm", "registers", "local_bytes",
-                     "shared_bytes", "sms"), out))
+                     "shared_bytes", "sms", "clusters"), out))
 
 
 def _check_device(prep: Prepared) -> None:

@@ -1,8 +1,8 @@
-"""Seeded adversarial shadow queries over one mesh's chunk tables, for
-holding the any-hit walk (csrc/mesh_intersect.cu) against its plain
-version: the same seed gives the same rays at any width, so the CPU
-tests (a few tiles, against the Pallas kernel in interpret mode) and
-`chip_smoke.py` (262,144 rays, kernel against plain version) run one
+"""Seeded adversarial queries over one mesh's chunk tables, for holding
+the any-hit walk and the closest walk (csrc/mesh_intersect.cu) against
+their plain version: the same seed gives the same rays at any width, so
+the CPU tests (a few tiles, against the Pallas kernel in interpret mode)
+and `chip_smoke.py` (262,144 rays, kernel against plain version) run one
 construction.
 
 Kinds:
@@ -18,6 +18,20 @@ Kinds:
                the plane, the direction's component across it 0 or
                +-1e-20), so the slab test meets 0 x inf = NaN and huge
                reciprocals.
+
+Closest-hit kinds (`closest_case`):
+  union_live   in each group of four lanes: a ray aimed at a point on the
+               mesh; one aimed there with t0 at half the distance (its
+               own cull fails for the boxes beyond); one in a random
+               direction (its cull mostly fails); one aimed just past the
+               mesh's bounds. The tile's union stays live, so rays whose
+               own cull fails evaluate sub-chunks as well;
+  grazing      the shadow kind's rays in cull-box face planes;
+  resolved     the shadow kind's interleaved lanes with t0 = -1 (the
+               bounce loop's dead lanes), the others aimed at the mesh;
+  duplicates   rays aimed at points on the mesh, meant for the tables of
+               `duplicated(v)`, where every triangle appears twice, four
+               rows apart: the lower row must win every hit.
 """
 
 from __future__ import annotations
@@ -26,6 +40,9 @@ import numpy as np
 
 KINDS = ("interleaved", "on_surface", "grazing")
 SEEDS = {"interleaved": 11, "on_surface": 12, "grazing": 13}
+CLOSEST_KINDS = ("union_live", "grazing", "resolved", "duplicates")
+CLOSEST_SEEDS = {"union_live": 21, "grazing": 22, "resolved": 23,
+                 "duplicates": 24}
 LANES = 512       # the kernels' ray tile
 FMAX = np.float32(3.4028234663852886e38)
 
@@ -106,3 +123,52 @@ def shadow_case(tb, kind: str, n_rays: int, seed: int, *, bias=1e-4):
     tl = np.where(rng.uniform(size=n) < 0.5, FMAX,
                   rng.uniform(0.01, 2 * extent, n)).astype(np.float32)
     return ro.T.copy(), rd, tl
+
+
+def duplicated(v) -> np.ndarray:
+    """Vertices with every triangle of v (T, 3, 3) twice, four rows
+    apart: each block of four triangles is followed by its copy (the last
+    T mod 4 are dropped). A chunk of a multiple of 8 rows never splits a
+    pair, the copies sit in different four-row groups (the closest walk's
+    threads of a ray split a piece by such groups), and on an exact tie
+    the original, whose row is lower (row mod 8 < 4), must win."""
+    v = np.asarray(v, np.float32)
+    blocks = v[:v.shape[0] // 4 * 4].reshape(-1, 4, 3, 3)
+    return np.concatenate([blocks, blocks], axis=1).reshape(-1, 3, 3)
+
+
+def closest_case(tb, kind: str, n_rays: int, seed: int, *, bias=1e-4):
+    """numpy float32 (ro3 (3, n), rd3 (3, n), t_limit (n,)) of one
+    seeded closest-hit query over the tables `tb` (IntersectTables)."""
+    if kind not in CLOSEST_KINDS:
+        raise ValueError(f"kind must be one of {CLOSEST_KINDS}, got {kind!r}")
+    if kind == "grazing":
+        return shadow_case(tb, "grazing", n_rays, seed, bias=bias)
+    if kind == "resolved":
+        ro, rd, tl = shadow_case(tb, "interleaved", n_rays, seed, bias=bias)
+        return ro, rd, np.where(tl < 0, tl, FMAX).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    v0, e1, e2 = _triangles(tb)
+    n = n_rays
+    pick = rng.integers(0, v0.shape[0], n)
+    u, v = rng.uniform(0, 1, (2, n)).astype(np.float32)
+    flip = u + v > 1
+    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
+    on_mesh = (v0[pick] + u[:, None] * e1[pick] + v[:, None] * e2[pick]).T
+    lo, hi = v0.min(axis=0), v0.max(axis=0)
+    centre = (lo + hi) / 2
+    extent = float((hi - lo).max())
+    ro = (centre[:, None] + rng.normal(0, 2 * extent, (3, n))).astype(np.float32)
+    target = on_mesh
+    tl = np.full(n, FMAX, np.float32)
+    if kind == "union_live":
+        group = np.arange(n) % 4
+        past = (hi + 0.05 * extent)[:, None] * np.ones((1, n), np.float32)
+        target = np.where(group == 3, past + rng.normal(0, 0.02 * extent, (3, n)),
+                          target)
+        rand = rng.normal(0, 1, (3, n)).astype(np.float32)
+        dist = np.linalg.norm(on_mesh - ro, axis=0)
+        tl = np.where(group == 1, 0.5 * dist, tl).astype(np.float32)
+        rd = _normalize(np.where(group == 2, rand, target - ro))
+        return ro, rd, tl
+    return ro, _normalize(target - ro), tl

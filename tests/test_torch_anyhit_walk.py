@@ -126,23 +126,29 @@ def _mt(rows, ro, rd, bfc):
     return t, ok
 
 
-def _numpy_walk(tb, prep, bfc):
-    """The TPU formulation's any-hit walk tile by tile in numpy, counting
-    per tile-live sub-chunk: the rays its per-ray cull needs, the tile's
-    unresolved rays, the 32-lane warps holding one, and the warps of the
-    packed layout (the rays unresolved at the super's start, compacted
-    stably into the lowest lanes). Returns (counts dict, occluded (Rp,))."""
+def _numpy_walk(tb, prep, bfc, anyhit=True):
+    """The TPU formulation's walk tile by tile in numpy, any hit (t = -1
+    and id 0 on a hit) or closest hit (the running min t per ray, the
+    lowest row winning a tie within a sub-chunk), counting per tile-live
+    sub-chunk: the rays its per-ray cull needs, the tile's unresolved
+    rays, the 32-lane warps holding one, and the warps of the packed
+    layout (the rays unresolved at the super's start, compacted stably
+    into the lowest lanes); and the heaviest tile's union. Returns
+    (counts dict, t (Rp,), id (Rp,)) as the plain version returns them."""
     tc, n_sub = tb.tri_chunk, tb.n_sub
     tri = tb.tri.numpy()
     cbox = tb.cbox.numpy()
     aux = prep.aux.numpy()
-    pairs = union = warp = packed = 0
-    occluded = np.zeros(aux.shape[1], bool)
+    pairs = union = warp = packed = tile_max = 0
+    t_out = aux[9].copy()
+    id_out = np.full(aux.shape[1], -1, np.int32)
     with np.errstate(all="ignore"):
         for tile in range(prep.n_tiles):
             lanes = slice(tile * 512, (tile + 1) * 512)
             ro, iv, rd = aux[0:3, lanes], aux[6:9, lanes], aux[3:6, lanes]
             t = aux[9, lanes].copy()
+            ids = np.full(512, -1, np.int32)
+            tile_union = 0
             for k in range(int(prep.counts[tile])):
                 sup = int(prep.torder[tile, k])
                 held = ~(t < 0)
@@ -163,36 +169,60 @@ def _numpy_walk(tb, prep, bfc):
                         continue
                     unres = t >= 0
                     union += int(unres.sum()) * tc
+                    tile_union += int(unres.sum()) * tc
                     warp += int(unres.reshape(16, 32).any(axis=1).sum()) * 32 * tc
                     packed += len(set((slot[unres & held] // 32).tolist())) * 32 * tc
                     rows = tri[sup, 0:9, j * tc:(j + 1) * tc]
                     th, ok = _mt(rows, ro, rd, bfc)
-                    hit = (ok & (th < t[None, :])).any(axis=0)
-                    t = np.where(hit, np.float32(-1.0), t)
-                    occluded[lanes] |= hit
-    return {"pairs": pairs, "union_pairs": union, "warp_pairs": warp,
-            "packed_pairs": packed}, occluded
+                    ok &= th < t[None, :]
+                    if anyhit:
+                        hit = ok.any(axis=0)
+                        t = np.where(hit, np.float32(-1.0), t)
+                        ids = np.where(hit, 0, ids)
+                        continue
+                    tm = np.where(ok, th, FMAX)
+                    t_min = tm.min(axis=0)
+                    better = t_min < t
+                    row = np.argmax(tm == t_min[None, :], axis=0)
+                    t = np.where(better, t_min, t)
+                    ids = np.where(better, (sup * n_sub + j) * tc + row, ids)
+            t_out[lanes] = t
+            id_out[lanes] = ids
+            tile_max = max(tile_max, tile_union)
+    return ({"pairs": pairs, "union_pairs": union, "warp_pairs": warp,
+             "packed_pairs": packed, "tile_union_max": tile_max},
+            t_out, id_out)
 
 
-@pytest.mark.parametrize("resolved_every", [0, 2, 10],
-                         ids=["none_resolved", "half_resolved", "90pct_resolved"])
-def test_work_counts_match_numpy_walk(scenes, resolved_every):
-    """pairs, union_pairs, warp_pairs and packed_pairs of the plain
-    version equal a numpy walk's on a 3-tile query whose lanes enter
-    resolved on an interleaved 0%, 50% and 90%; pairs <= union_pairs <=
-    packed_pairs <= warp_pairs."""
+@pytest.mark.parametrize("anyhit,resolved_every", [
+    pytest.param(True, 0, id="none_resolved"),
+    pytest.param(True, 2, id="half_resolved"),
+    pytest.param(True, 10, id="90pct_resolved"),
+    pytest.param(False, 0, id="closest-none_resolved"),
+    pytest.param(False, 2, id="closest-half_resolved"),
+    pytest.param(False, 10, id="closest-90pct_resolved"),
+])
+def test_work_counts_match_numpy_walk(scenes, anyhit, resolved_every):
+    """pairs, union_pairs, warp_pairs, packed_pairs and tile_union_max of
+    the plain version, and its t (bits) and ids, equal a numpy walk's on
+    a 3-tile query whose lanes enter resolved on an interleaved 0%, 50%
+    and 90%, for the any hit and the closest hit; pairs <= union_pairs
+    <= packed_pairs <= warp_pairs."""
     _, ts = scenes
     tb = ts.meshes[0].itables
     ro, rd, tl = _rays(3 * 512 - 100, seed=21, resolved_every=resolved_every)
     prep = ci.prepare(tb, *(torch.from_numpy(x) for x in (ro, rd, tl)))
     stats: dict = {}
-    _, tri = ci.intersect_plain(tb, prep, anyhit=True, backface_culling=True,
-                                stats=stats)
-    want, occluded = _numpy_walk(tb, prep, bfc=True)
+    t, tri = ci.intersect_plain(tb, prep, anyhit=anyhit,
+                                backface_culling=True, stats=stats)
+    want, t_np, id_np = _numpy_walk(tb, prep, bfc=True, anyhit=anyhit)
     assert {k: stats[k] for k in want} == want
-    np.testing.assert_array_equal(tri.numpy() >= 0, occluded)
+    np.testing.assert_array_equal(tri.numpy(), id_np)
+    np.testing.assert_array_equal(t.numpy().view(np.int32), t_np.view(np.int32))
+    assert (tri >= 0).sum() > 10
     assert 0 < want["pairs"] <= want["union_pairs"]
     assert want["union_pairs"] <= want["packed_pairs"] <= want["warp_pairs"]
+    assert 0 < want["tile_union_max"] <= want["union_pairs"]
     if resolved_every:  # packing removes the resolved lanes' warps
         assert want["packed_pairs"] < want["warp_pairs"]
 

@@ -13,6 +13,8 @@ machine without JAX; there, skip the JAX-pinning conftest:
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -282,9 +284,174 @@ def test_anyhit_walk_records_every_tile(cuda, tile_walk):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert (t[:, 0] > 0).all() and (t[:, 1] >= t[:, 0]).all()
     assert (t[:, 2] >= 0).all() and (t[:, 2] < sms).all()
-    res = ci.anyhit_resources(tile_walk=tile_walk, root_filter=False,
-                              collect_stats=False)
+    res = ci.resources("any_hit_tile_walk" if tile_walk else "any_hit")
     assert res["ctas_per_sm"] >= 1 and res["sms"] == sms
+
+
+def _closest_tables(fused):
+    """A clipped mesh's tables with its reach rows, or fused tables of a
+    clipped and an unclipped mesh (pad cull chunks inside the table)."""
+    if not fused:
+        v, reach = _clipped(20_000, pos=(-0.1, 0, -0.6))
+        return ci.build_intersect_tables(v, tri_chunk=64, reach=reach)
+    va, ra = _clipped(6000, pos=(-0.8, 0, -3.0), seed=1)
+    vb = procedural_mesh(4000, pos=(0.9, 0.2, -3.5), size=(1.2, 1.2, 1.2),
+                         seed=2).v
+    vb = vb[morton_order(vb)]
+    return ci.build_fused_tables([va, vb], [True, False], reach=[ra, None])
+
+
+CLOSEST_WALKS = ("tile",) + ci.CLUSTER_SIZES
+
+
+def _closest_on_walk(name, walk, tables, prep, **kw):
+    """Closest-hit variant `name` on the tile walk or the closest walk at
+    `walk` CTAs per tile."""
+    k = ci.KERNELS[name]
+    fused = isinstance(tables, ci.FusedTables)
+    if walk == "tile":
+        k = ci.KERNELS[ci.variant_name(
+            anyhit=False, fused=k.fused, root_filter=k.root_filter,
+            collect_stats=k.collect_stats, tile_walk=True)]
+        walk = 1
+    return k(tables.geo if fused else tables, prep, backface_culling=True,
+             idmap=tables.idmap if fused else None, cluster=walk, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", CLOSEST_WALKS)
+@pytest.mark.parametrize("fused,root_filter,collect_stats",
+                         list(itertools.product((False, True), repeat=3)))
+def test_closest_walk_matches_plain(cuda, fused, root_filter, collect_stats,
+                                    walk):
+    """Every closest-hit variant (fused, root filter, counters) on the
+    closest walk at each cluster size and on the tile walk against its
+    plain version, on a ragged tile count with limits and resolved lanes:
+    t bit-equal, ids and counters equal; one launch counted."""
+    tables = _closest_tables(fused).to(cuda)
+    geo = tables.geo if fused else tables
+    make = _multimesh_rays if fused else _rays
+    ro, rd, tl = (x.to(cuda) for x in make(8 * 512 + 77, seed=7))
+    prep = ci.prepare(geo, ro, rd, tl)
+    name = ci.variant_name(anyhit=False, fused=fused, root_filter=root_filter,
+                           collect_stats=collect_stats)
+    plain = ci.intersect_fused_plain if fused else ci.intersect_plain
+    out_p = plain(tables, prep, anyhit=False, backface_culling=True,
+                  root_filter=root_filter, collect_stats=collect_stats)
+    counts = {k: v.launches for k, v in ci.KERNELS.items()}
+    out_k = _closest_on_walk(name, walk, tables, prep)
+    torch.cuda.synchronize()
+    launched = {k for k, v in ci.KERNELS.items() if v.launches != counts[k]}
+    assert launched == {name if walk != "tile" else name.replace(
+        "closest_hit", "closest_hit_tile_walk", 1)}
+    assert int((out_k[1] >= 0).sum()) > 100
+    assert torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32))
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", CLOSEST_WALKS)
+@pytest.mark.parametrize("kind", shadow_cases.CLOSEST_KINDS)
+def test_closest_walk_matches_plain_on_closest_cases(cuda, kind, walk):
+    """Both closest walks against the plain version, counters on, on the
+    seeded closest cases (rays whose own cull fails while the tile is
+    live, cull-box face planes, pre-resolved and padded lanes, duplicated
+    triangles) at a ragged width."""
+    m = procedural_mesh(20_000, pos=(-0.1, 0, -0.6), size=(2, 2, 2))
+    v = m.v[morton_order(m.v)]
+    if kind == "duplicates":
+        v = shadow_cases.duplicated(v)
+    tb = ci.build_intersect_tables(v, tri_chunk=64).to(cuda)
+    ro, rd, tl = (torch.from_numpy(x).to(cuda) for x in shadow_cases.closest_case(
+        tb, kind, 8 * 512 + 77, shadow_cases.CLOSEST_SEEDS[kind]))
+    prep = ci.prepare(tb, ro, rd, tl)
+    out_p = ci.intersect_plain(tb, prep, anyhit=False, backface_culling=True,
+                               collect_stats=True)
+    out_k = _closest_on_walk("closest_hit_stats", walk, tb, prep)
+    torch.cuda.synchronize()
+    assert int((out_p[1] >= 0).sum()) > 100
+    assert torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32))
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a.cpu(), b.cpu())
+    if kind == "duplicates":
+        assert bool((out_k[1][out_k[1] >= 0] % 8 < 4).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", ci.CLUSTER_SIZES[1:])
+@pytest.mark.parametrize("split_factor", [0, 1, 10**6])
+def test_closest_walk_split_and_whole_tiles_match_plain(cuda, split_factor,
+                                                        cluster):
+    """The closest walk with every tile split (factor 0), the ones at or
+    above the mean (1: 8 of the 9 tiles here, so split and whole tiles
+    in one launch), and none (a factor no tile reaches), root filter and
+    counters on, against the plain version: t bit-equal, ids and
+    counters equal."""
+    import dataclasses
+
+    tb = _closest_tables(False).to(cuda)
+    ro, rd, tl = (torch.from_numpy(x).to(cuda) for x in shadow_cases.closest_case(
+        tb, "union_live", 8 * 512 + 77, shadow_cases.CLOSEST_SEEDS["union_live"]))
+    prep = ci.prepare(tb, ro, rd, tl)
+    prep = dataclasses.replace(
+        prep, n_split=ci.tile_schedule(prep.counts, split_factor)[1])
+    n_split = int(prep.n_split)
+    n_live = int((prep.counts > 0).sum())
+    assert n_split == {0: n_live, 1: 8, 10**6: 0}[split_factor]
+    assert n_live == 9
+    out_p = ci.intersect_plain(tb, prep, anyhit=False, backface_culling=True,
+                               root_filter=True, collect_stats=True)
+    out_k = ci.KERNELS["closest_hit_rootfilter_stats"](
+        tb, prep, backface_culling=True, cluster=cluster)
+    torch.cuda.synchronize()
+    assert int((out_p[1] >= 0).sum()) > 100
+    assert torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32))
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", CLOSEST_WALKS)
+def test_closest_walk_records_every_tile(cuda, walk):
+    """The closest walks' TIMING variants record each tile once (end >=
+    start, an SM id below the card's count) and give the untimed
+    launch's results; the resources report the cluster's residency."""
+    scene = build_flagship_scene(128, 64, n_tris=20_000, device=cuda)
+    tb = scene.meshes[0].itables
+    ro, rd, tl = (x.to(cuda) for x in _rays(8 * 512 + 77, seed=8))
+    prep = ci.prepare(tb, ro, rd, tl)
+    timing = torch.zeros((prep.n_tiles, 3), dtype=torch.int64, device=cuda)
+    timed = _closest_on_walk("closest_hit", walk, tb, prep, timing=timing)
+    plain = _closest_on_walk("closest_hit", walk, tb, prep)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(timed, plain))
+    t = timing.cpu()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = 1 if walk == "tile" else walk
+    spread = t[:, 2] >> 16
+    assert (t[:, 0] > 0).all() and (t[:, 1] >= t[:, 0]).all()
+    assert ((t[:, 2] & 0xFFFF) < sms).all() and (t[:, 2] >= 0).all()
+    assert ((spread == 0) if walk == "tile"
+            else (spread >= 1) & (spread <= g)).all()
+    name = "closest_hit_tile_walk" if walk == "tile" else "closest_hit"
+    res = ci.resources(name, cluster=g)
+    assert res["ctas_per_sm"] >= 1 and res["sms"] == sms
+    assert (res["clusters"] >= 1) == (walk != "tile")
+
+
+@pytest.mark.cuda
+def test_closest_walk_refuses_unsupported_cluster(cuda):
+    """A cluster size the kernel does not take raises before a launch."""
+    scene = build_flagship_scene(128, 64, n_tris=20_000, device=cuda)
+    tb = scene.meshes[0].itables
+    ro, rd, tl = (x.to(cuda) for x in _rays(2 * 512, seed=9))
+    prep = ci.prepare(tb, ro, rd, tl)
+    before = ci.closest_hit_kernel.launches
+    for g in (0, 3, 16):
+        with pytest.raises(ValueError, match="cluster"):
+            ci.closest_hit_kernel(tb, prep, backface_culling=True, cluster=g)
+    assert ci.closest_hit_kernel.launches == before
 
 
 @pytest.mark.cuda

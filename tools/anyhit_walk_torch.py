@@ -109,34 +109,45 @@ def run_walk(name, walk, tables, prep, bfc, timing=None):
 
 
 @contextlib.contextmanager
-def timed_anyhits(walk: str, records: list, keep: dict | None = None):
-    """Send every single-mesh any-hit query (`ci.run_query` with anyhit)
-    through walk `walk`, with a CUDA event pair around each launch,
-    appended to records in call order. keep maps a call index to a key:
-    that call's (tables, prepared query) go to keep[key]."""
+def timed_queries(run, records: list, keep: dict | None = None, *,
+                  anyhit: bool = True):
+    """Send every single-mesh query of one kind (`ci.run_query` with
+    `anyhit`) through run(name, tables, prep, bfc), name the variant's,
+    with a CUDA event pair around each launch, appended to records in
+    call order. keep maps a call index to a key: that call's (tables,
+    prepared query) go to keep[key]. Queries of the other kind run as
+    they would."""
     real = ci.run_query
 
-    def query(tables, prep, *, anyhit, backface_culling, **kw):
-        if not anyhit:
+    def query(tables, prep, *, anyhit: bool, backface_culling, **kw):
+        if anyhit != want:
             return real(tables, prep, anyhit=anyhit,
                         backface_culling=backface_culling, **kw)
         if keep is not None and len(records) in keep:
             keep[keep[len(records)]] = (tables, prep)
-        name = ci.variant_name(anyhit=True, fused=False, **{
+        name = ci.variant_name(anyhit=anyhit, fused=False, **{
             k: kw.get(k, False) for k in ("root_filter", "collect_stats",
                                           "two_phase")})
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        out = run_walk(name, walk, tables, prep, backface_culling)
+        out = run(name, tables, prep, backface_culling)
         ev[1].record()
         records.append(ev)
         return out
 
+    want = anyhit
     ci.run_query = query
     try:
         yield
     finally:
         ci.run_query = real
+
+
+def timed_anyhits(walk: str, records: list, keep: dict | None = None):
+    """`timed_queries` of the any hits, each on walk `walk`."""
+    return timed_queries(
+        lambda name, tables, prep, bfc: run_walk(name, walk, tables, prep, bfc),
+        records, keep)
 
 
 def bouncing_keep(n_blocks: int) -> dict:
@@ -180,23 +191,33 @@ def device_kernels(prof) -> list:
 
 
 def frame_anyhit_ms(scene, walk: str, keep: dict | None = None) -> dict:
-    """One bouncing frame with every any-hit query on walk `walk`, under
-    torch.profiler, with CUDA events around each query and the frame
-    (synchronized once at the end). Returns the frame's ms, its device
-    busy time and idle share, and per bounce and batch the any-hit
-    kernels' summed device time (`*_ms`, from the profiler) and the
-    events' (`*_event_ms`, which also hold the card's waits on the host
-    between the two events of a query).
+    """One bouncing frame with every any-hit query on walk `walk`
+    (`frame_kernel_ms`, batches point+distant and area)."""
+    return frame_kernel_ms(
+        scene, walk, lambda records: timed_anyhits(walk, records, keep),
+        WALK_KERNEL[walk], BATCHES)
+
+
+def frame_kernel_ms(scene, walk: str, timed, kernel_re, batches) -> dict:
+    """One bouncing frame with one kind of query routed by
+    timed(records) (a `timed_queries` context), under torch.profiler,
+    with CUDA events around each query and the frame (synchronized once
+    at the end). `batches` names the queries of one ray block and bounce
+    in call order; `kernel_re` matches the routed kernel's name in the
+    trace. Returns the frame's ms, its device busy time and idle share,
+    and per bounce and batch the kernels' summed device time (`*_ms`,
+    from the profiler) and the events' (`*_event_ms`, which also hold
+    the card's waits on the host between the two events of a query).
 
     The trace's kernels are matched to the queries in order. On the card
     a profiler session can miss the first kernels it should record and
     receive a previous session's last ones, so each session follows an
     empty one, and a frame is rendered again (up to FRAME_TRIES times,
-    `attempts`) until it has one kernel of the walk per query and none
-    longer than its query's events (`unmatched_kernels`, reported)."""
+    `attempts`) until it has one kernel per query and none longer than
+    its query's events (`unmatched_kernels`, reported)."""
     best = None
     for attempt in range(1, FRAME_TRIES + 1):
-        out = _profiled_frame(scene, walk, keep)
+        out = _profiled_frame(scene, walk, timed, kernel_re, batches)
         if out is not None and (best is None or out["unmatched_kernels"]
                                 < best["unmatched_kernels"]):
             best = dict(out, attempts=attempt)
@@ -204,13 +225,13 @@ def frame_anyhit_ms(scene, walk: str, keep: dict | None = None) -> dict:
             break
     if best is None:
         raise AssertionError(f"no profile of the {walk} walk's frame had "
-                             f"one kernel per any-hit query")
+                             f"one kernel per query")
     return best
 
 
-def _profiled_frame(scene, walk: str, keep: dict | None):
-    """One try of `frame_anyhit_ms`; None when the trace does not hold
-    one kernel of the walk per any-hit query."""
+def _profiled_frame(scene, walk: str, timed, kernel_re, batches):
+    """One try of `frame_kernel_ms`; None when the trace does not hold
+    one kernel per routed query."""
     from rendering_tpu_torch.render.pipeline import render_scene
 
     st = scene.static.settings
@@ -222,18 +243,19 @@ def _profiled_frame(scene, walk: str, keep: dict | None):
     with torch.profiler.profile(activities=acts):
         torch.cuda.synchronize()  # takes what an earlier session left
     with torch.profiler.profile(activities=acts) as prof:
-        with torch.no_grad(), timed_anyhits(walk, records, keep):
+        with torch.no_grad(), timed(records):
             frame[0].record()
             render_scene(scene)
             frame[1].record()
         torch.cuda.synchronize()
-    per_bounce = 2 * n_blocks
+    nb = len(batches)
+    per_bounce = nb * n_blocks
     n_bounces = st.max_ray_depth + 1
     kernels = device_kernels(prof)
     launch_ms = [us / 1e3 for name, _, us in kernels
-                 if WALK_KERNEL[walk].search(name)]
+                 if kernel_re.search(name)]
     if len(records) != per_bounce * n_bounces:
-        raise AssertionError(f"{len(records)} any-hit queries, expected "
+        raise AssertionError(f"{len(records)} routed queries, expected "
                              f"{per_bounce * n_bounces}")
     if len(launch_ms) != len(records):
         return None
@@ -245,15 +267,15 @@ def _profiled_frame(scene, walk: str, keep: dict | None):
     for b in range(n_bounces):
         part = slice(b * per_bounce, (b + 1) * per_bounce)
         row = {}
-        for i, batch in enumerate(BATCHES):
-            row[f"{batch}_ms"] = sum(launch_ms[part][i::2])
-            row[f"{batch}_event_ms"] = sum(event_ms[part][i::2])
+        for i, batch in enumerate(batches):
+            row[f"{batch}_ms"] = sum(launch_ms[part][i::nb])
+            row[f"{batch}_event_ms"] = sum(event_ms[part][i::nb])
         bounces.append(row)
     frame_ms = frame[0].elapsed_time(frame[1])
     busy_ms = sum(us for _, _, us in kernels) / 1e3
     return {"walk": walk, "frame_ms": frame_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / frame_ms,
-            "anyhit_ms": sum(launch_ms), "anyhit_event_ms": sum(event_ms),
+            "kernel_ms": sum(launch_ms), "kernel_event_ms": sum(event_ms),
             "launches": len(records), "unmatched_kernels": unmatched,
             "by_bounce": bounces}
 
@@ -262,32 +284,44 @@ def tile_summary(timing: torch.Tensor) -> dict:
     """A launch's tile timeline from its (n_tiles, 3) [start ns, end ns,
     SM] records: the span from the first start to the last end, the
     longest and mean tile, the tail from the 95th-percentile tile end to
-    the last one, and the SMs that ran a tile (microseconds)."""
+    the last one (microseconds), and the SMs that ran a tile. The
+    closest walk records above bit 16 of the SM column the distinct SMs
+    its cluster ran on: their mean over the tiles and the longest tile's
+    (`cluster_sms`, `longest_tile_sms`; 1 without a cluster)."""
+    sm_col = timing[:, 2].cpu()
     t = timing.cpu().double()
     start, end = t[:, 0], t[:, 1]
     t0 = float(start.min())
     dur = end - start
     ends = torch.sort(end - t0).values
     p95 = float(ends[min(len(ends) - 1, int(0.95 * len(ends)))])
+    spread = torch.clamp_min(sm_col >> 16, 1)
     return {"tiles": int(t.shape[0]), "span_us": float(ends[-1]) / 1e3,
             "longest_us": float(dur.max()) / 1e3,
             "mean_us": float(dur.mean()) / 1e3,
             "tail_us": (float(ends[-1]) - p95) / 1e3,
-            "sms": int(torch.unique(t[:, 2]).numel())}
+            "sms": int(torch.unique(sm_col & 0xFFFF).numel()),
+            "cluster_sms": float(spread.double().mean()),
+            "longest_tile_sms": int(spread[int(torch.argmax(dur))])}
 
 
 def work_counts(name, tables, prep, bfc) -> dict:
-    """The plain version's work counts on a query (ops/cuda_intersect.py
-    intersect_plain) and the two operations bounds they give."""
+    """The plain version's work counts on a query of variant `name`
+    (ops/cuda_intersect.py intersect_plain), the live supers a tile (mean,
+    max), and the operations bounds they give: the per-ray pairs and the
+    union at the card's rate, the heaviest tile's union at one SM's share
+    of it."""
     k = ci.KERNELS[name]
     stats: dict = {}
     fn = (ci.intersect_fused_plain if isinstance(tables, ci.FusedTables)
           else ci.intersect_plain)
-    fn(tables, prep, anyhit=True, backface_culling=bfc,
+    fn(tables, prep, anyhit=k.anyhit, backface_culling=bfc,
        root_filter=k.root_filter, collect_stats=k.collect_stats, stats=stats)
     out = {key: stats[key] for key in ("pairs", "union_pairs", "warp_pairs",
                                        "packed_pairs", "tile_union_max",
                                        "accepts")}
+    out["live_supers_mean"] = float(prep.counts.double().mean())
+    out["live_supers_max"] = int(prep.counts.max())
     out["pairs_bound_ms"] = stats["pairs"] * OPS_PER_PAIR / F32_OPS_RATE * 1e3
     out["union_bound_ms"] = (stats["union_pairs"] * OPS_PER_PAIR
                              / F32_OPS_RATE * 1e3)
@@ -300,13 +334,10 @@ def work_counts(name, tables, prep, bfc) -> dict:
 def walk_profile(name, walk, tables, prep, bfc) -> dict:
     """One walk on a query: its tile timeline (TIMING variant, one launch)
     and its resources."""
-    k = ci.KERNELS[name]
     timing = torch.zeros((prep.n_tiles, 3), dtype=torch.int64,
                          device=prep.aux.device)
     run_walk(name, walk, tables, prep, bfc, timing=timing)
-    res = ci.anyhit_resources(tile_walk=walk == "tile",
-                              root_filter=k.root_filter,
-                              collect_stats=k.collect_stats)
+    res = ci.resources(walk_kernel(name, walk).name)
     if walk == "packed":
         res["ctas_per_sm"] = min(res["ctas_per_sm"], ci.WALK_CTAS_PER_SM)
     return {**tile_summary(timing), **res}
