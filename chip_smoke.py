@@ -142,6 +142,41 @@ launched only here and by the tools):
     the kept fused any hit agrees with its plain version, and the whole
     render equals the plain versions' in u8 and counters.
 
+The scene-file default path and the debug passes (t10's workload with the
+250k OBJ of phase 10, at 3840x1080):
+
+24. renders the scene file with outputProgress=1 (the scene-file
+    default) through `cli.main`, i.e. `render_with_progress`: the BMP
+    decodes at full size and is within tests/test_golden.py's default
+    limits of phase 10's one-shot BMP; the root-filter kernels launch
+    once per ray block of each 128-row strip (34 at 3840x1080) and of the
+    SSAA pass, nothing else launches; the real-clock progress lines are
+    printed; then the f32 strip frame (a fake clock: one line a strip,
+    checked) against the one-shot `render` (differing pixels counted, and
+    those outside the JAX strip tolerance), both timed in turns by the
+    host clock, and the scene fingerprint's time;
+25. `render_resumable` on that scene: bit-equal to the strip frame, each
+    checkpoint write (a 49.8 MB accumulator at 3840x1080, under
+    build/chip_smoke/) timed; resumed with its last two strips cleared,
+    it renders only those and is bit-equal; a checkpoint of the scene
+    with the point light at half intensity is rejected with the warning
+    and every strip renders again;
+26. a t08-like scene file (showNormals=1, SSAA on) through `cli.main`:
+    only the closest-hit variant launches, one per ray block; the frame
+    is timed; whole-render u8 parity at 384x216, kernels vs plain; then
+    the same file with outputProgress=1 (its scene-file default): only
+    the closest-hit variant launches, one per ray block of each strip and
+    of the SSAA pass, the BMP is within test_golden.py's default limits
+    of the one-shot BMP and the f32 strip frame within the JAX strip
+    tolerance (atol 2e-6, rtol 3e-4) of `render`;
+27. t09-like scene files (showAC=1) through `cli.main` at useAC 1 and 0:
+    only the showAC walk's kernel (csrc/bvh_walk.cu, `ac_walk`) launches,
+    one per ray block; the plain walk timed on the card on the middle
+    131,072-ray block and scaled to the frame's blocks (the measurement
+    that decides whether the kernel is needed), against the same scene's
+    normal frame; the kernel's counts equal the plain walk's on every
+    block of the frame, and its time and bound on the middle block.
+
 Every query a phase holds to its plain version (phases 3, 7, 11, 12, 13,
 14, 16, 23) is also timed against the tile walk its kernel replaced, in
 turns (tile, new, new, tile; `ms` is the new walk's, `tile_walk_ms` the
@@ -174,9 +209,11 @@ import contextlib
 import dataclasses
 import functools
 import importlib.util
+import io
 import json
 import math
 import os
+import re
 import sys
 import time
 
@@ -265,7 +302,7 @@ ac_penalty=3
 background_color=0.52,0.8,0.92
 image_name={name}
 enableOutput=1
-outputProgress=0
+outputProgress={progress}
 collectStatistics={stats}
 
 [light]
@@ -306,6 +343,47 @@ name={obj}
 """
 
 
+# The debug scenes: tests/scenes/t08_shownormals.scene and t09_showac.scene
+# with the 250k procedural mesh as their OBJ, at the flagship's resolution
+# (t08 with SSAA on, the scene-file default, one-shot and with
+# outputProgress=1; t09 with useAC 1 and 0).
+DEBUG_SCENE = """[options]
+width={w}
+height={h}
+{option}=1
+useAC={use_ac}
+background_color=0,0,0
+image_name={name}
+enableOutput=1
+outputProgress={progress}
+
+[light]
+type=distant
+direction=0,-1,0
+color=1,1,1
+intensity=1
+
+[object]
+type=mesh
+pos=0,0,-3
+size=2,2,2
+color=1,1,1
+rot=0,160,0
+name={obj}
+
+[end]
+"""
+STRIP_ROWS = 128        # render_with_progress's default strip height
+# tests/test_golden.py's DEFAULT_TOL and default mean |diff| limit.
+DEFAULT_GOLDEN_TOL = (0.006, 0.005, 0.001, 0.15)
+# The showAC walk's slab test (csrc/bvh_walk.cu): per axis 2 selects, 2
+# sub and 2 mul; 4 compares for the hit; 2 compare-selects after y.
+AC_SLAB_OPS = 3 * 6 + 4 + 2 * 2
+AC_SOURCE = "rendering_tpu_torch/csrc/bvh_walk.cu"
+# No Pallas kernel: the JAX package's walk is this XLA while loop.
+AC_REPLACES = "rendering_tpu/ops/traversal.py:161"
+
+
 def flags(ci, name) -> dict:
     """The query flags of kernel variant `name` (ops/cuda_intersect.py
     KERNELS): anyhit, root_filter, collect_stats, and two_phase for a
@@ -334,12 +412,13 @@ def plain(ci, tables, prep, bfc, stats=None, two_phase=False, **kw):
 
 @contextlib.contextmanager
 def counted(ci, out: dict):
-    """Set every kernel's launch count to 0 (the intersection kernels and
-    the probes), run the block, and store the counts just after it
-    (synchronized) in `out`."""
+    """Set every kernel's launch count to 0 (the intersection kernels,
+    the probes and the showAC walk), run the block, and store the counts
+    just after it (synchronized) in `out`."""
     from rendering_tpu_torch.ops import microbench as mb
+    from rendering_tpu_torch.ops import traversal
 
-    launchers = {**ci.KERNELS, **mb.KERNELS}
+    launchers = {**ci.KERNELS, **mb.KERNELS, **traversal.KERNELS}
     for k in launchers.values():
         k.launches = 0
     yield
@@ -788,10 +867,12 @@ def golden_measures(ours, gold):
             float((~ok.all(axis=2))[1:-1, 1:-1].mean()), float(inner.mean()))
 
 
-def write_scene(path, obj, *, w, h, stats, name, second_obj=None):
+def write_scene(path, obj, *, w, h, stats, name, second_obj=None,
+                progress=False):
     with open(path, "w") as fh:
         fh.write(SCENE_FILE.format(
             w=w, h=h, stats=int(stats), name=name, obj=obj, maps=MAPS,
+            progress=int(progress),
             extra=SECOND_OBJECT.format(obj=second_obj) if second_obj else ""))
 
 
@@ -1403,6 +1484,422 @@ def transparent_phase(ci) -> dict:
             "fused_any_hit_stats": nums, "stats": stats}
 
 
+@contextlib.contextmanager
+def logged(module, attr: str, calls: list):
+    """Wrap module.attr so that every call appends its kwargs to calls,
+    without waiting for the card (the strip renders launch strip k + 1
+    before they read strip k)."""
+    real = getattr(module, attr)
+
+    def wrapper(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+
+    setattr(module, attr, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+def run_cli(ci, scene_path, bmp, records=(), logs=()):
+    """`python -m rendering_tpu_torch scene_path --output bmp` as
+    `cli.main`, with every kernel's launch count set to 0 just before it
+    and read just after, its standard output captured (and printed), the
+    calls of each (key, module, attr) in `records` recorded (`recorded`:
+    synchronized) and in `logs` logged (`logged`: their kwargs). Returns
+    {"counts", "rec", "out", "total_s", "scene", "scene_def", "image"}."""
+    from rendering_tpu_torch import cli
+    from rendering_tpu_torch.models import scene as scene_mod
+    from rendering_tpu_torch.utils.bmp import bmp_to_image, load_bmp
+
+    rec = {"build": [], **{k: [] for k, _, _ in (*records, *logs)}}
+    counts: dict = {}
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(recorded(scene_mod, "build_scene", rec["build"]))
+        for key, module, attr in records:
+            stack.enter_context(recorded(module, attr, rec[key]))
+        for key, module, attr in logs:
+            stack.enter_context(logged(module, attr, rec[key]))
+        stack.enter_context(counted(ci, counts))
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        t0 = time.perf_counter()
+        cli.main([scene_path, "--output", bmp])
+        total_s = time.perf_counter() - t0
+    print(buf.getvalue(), end="")
+    return {"counts": counts, "rec": rec, "out": buf.getvalue(),
+            "total_s": total_s, "scene": rec["build"][0]["result"],
+            "scene_def": rec["build"][0]["args"][0],
+            "image": bmp_to_image(load_bmp(bmp))}
+
+
+def host_s(fn):
+    """Host seconds of fn() with the card synchronized before and after
+    (the strip renders wait on the card inside, so events would time the
+    host's waits too), and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def render_blocks(calls, w, h) -> int:
+    """Ray blocks of the recorded render_scene calls: the primary pass and
+    the SSAA pass at each call's capacity."""
+    from rendering_tpu_torch.render import pipeline
+
+    blocks = 0
+    for call in calls:
+        st = call["args"][0].static.settings
+        cap = (call["kwargs"].get("ssaa_capacity")
+               or pipeline.default_ssaa_capacity(st))
+        blocks += math.ceil(w * h / RAY_BLOCK)
+        if st.enable_ssaa and not st.show_ac:
+            blocks += math.ceil(4 * cap / RAY_BLOCK)
+    return blocks
+
+
+def progress_phase(ci, obj, oneshot_bmp, card_line):
+    """Phase 24: t10's workload with outputProgress=1 through `cli.main`
+    (the strip renderer): the BMP at full size and within test_golden.py's
+    default limits of the one-shot BMP (phase 10); the primary strips'
+    root-filter launches, one per ray block of each strip (34 at
+    3840x1080 in 128-row strips), and the SSAA pass's; progress lines;
+    then the f32 strip frame (fake clock: a line per strip) against the
+    one-shot `render`, both timed in turns, and the scene fingerprint's
+    time. Returns (numbers, the scene, the f32 strip frame)."""
+    import numpy as np
+
+    from rendering_tpu_torch.render import pipeline
+    from rendering_tpu_torch.utils.bmp import bmp_to_image, load_bmp
+
+    path = os.path.join(WORKSPACE, "shotgun_progress.scene")
+    write_scene(path, obj, w=SCENE_W, h=SCENE_H, stats=False,
+                name="shotgun_progress", progress=True)
+    run = run_cli(ci, path, path[:-len(".scene")] + ".bmp",
+                  records=[("ssaa", pipeline, "_ssaa_pass")],
+                  logs=[("strip", pipeline, "_render_strip")])
+    scene = run["scene"]
+    w, h = SCENE_W, SCENE_H
+    if run["image"].shape != (h, w, 3):
+        raise AssertionError(f"progress BMP decodes to {run['image'].shape}")
+    rows = [kw["rows"] for kw in run["rec"]["strip"]]
+    strip_blocks = sum(math.ceil(r * w / RAY_BLOCK) for r in rows)
+    caps = [c["kwargs"]["capacity"] for c in run["rec"]["ssaa"]]
+    ssaa_blocks = sum(math.ceil(4 * cap / RAY_BLOCK) for cap in caps)
+    want_strips = -(-h // STRIP_ROWS)
+    if len(rows) != want_strips or ((w, h) == (3840, 1080)
+                                    and strip_blocks != 34):
+        raise AssertionError(f"progress: strips {rows}, {strip_blocks} blocks")
+    check_launches(run["counts"],
+                   {"closest_hit_rootfilter": strip_blocks + ssaa_blocks,
+                    "any_hit_rootfilter": strip_blocks + ssaa_blocks},
+                   f"progress cli.main ({strip_blocks} strip blocks + "
+                   f"{ssaa_blocks} SSAA blocks)")
+    cli_lines = re.findall(r"^ ?\d+%$", run["out"], re.M)
+    measures = golden_measures(run["image"],
+                               bmp_to_image(load_bmp(oneshot_bmp)))
+    print(f"progress cli.main: {want_strips} strips of rows {rows}; SSAA "
+          f"capacities {caps}; progress lines {cli_lines} (real clock); "
+          f"BMP vs the one-shot BMP: measures {measures} (limits "
+          f"{DEFAULT_GOLDEN_TOL}); cli.main {run['total_s']:.3f} s")
+    if any(m > t for m, t in zip(measures, DEFAULT_GOLDEN_TOL)):
+        raise AssertionError("the progress BMP is outside the one-shot "
+                             "BMP's limits")
+
+    clock = iter(range(0, 10**6, 2))
+    lines: list = []
+    with torch.no_grad():
+        t_one, (one, _) = host_s(lambda: pipeline.render(scene))
+        t_strip, (strip, aux) = host_s(lambda: pipeline.render_with_progress(
+            scene, _now=lambda: float(next(clock)), _print=lines.append))
+        t_strip2, _ = host_s(lambda: pipeline.render_with_progress(
+            scene, _print=lambda line: None))
+        t_one2, _ = host_s(lambda: pipeline.render(scene))
+    want_lines = [f"{100.0 * min((k + 1) * STRIP_ROWS, h) / h:2.0f}%"
+                  for k in range(want_strips)]
+    if lines != want_lines:
+        raise AssertionError(f"progress lines {lines}, expected {want_lines}")
+    diff = np.abs(strip - one)
+    n_px = int((diff > 0).any(axis=2).sum())
+    outside = int((diff > 2e-6 + 3e-4 * np.abs(one)).any(axis=2).sum())
+    fp_s, fp = host_s(lambda: pipeline._scene_fingerprint(scene))
+    out = {"strips": rows, "strip_blocks": strip_blocks,
+           "ssaa_blocks": ssaa_blocks, "ssaa_masked": aux["ssaa_masked"],
+           "launches": {k: n for k, n in run["counts"].items() if n},
+           "cli_s": run["total_s"], "cli_lines": cli_lines,
+           "bmp_measures": measures, "f32_pixels_differing": n_px,
+           "f32_pixels_outside_strip_tol": outside,
+           "f32_max_abs_diff": float(diff.max()),
+           "oneshot_s": [t_one, t_one2], "strip_s": [t_strip, t_strip2],
+           "strip_over_oneshot": (t_strip + t_strip2) / (t_one + t_one2),
+           "fingerprint_s": fp_s}
+    print(f"progress frame {w}x{h}: strip frame vs one-shot render, f32 "
+          f"pixels differing {n_px} (outside atol 2e-6 rtol 3e-4: "
+          f"{outside}), max |diff| {float(diff.max()):.3e}; in turns "
+          f"one-shot {t_one:.3f} s, strips {t_strip:.3f}, {t_strip2:.3f}, "
+          f"one-shot {t_one2:.3f} (ratio {out['strip_over_oneshot']:.4f}); "
+          f"fingerprint {fp} in {fp_s:.4f} s on {card_line}")
+    return out, scene, strip
+
+
+def resumable_phase(scene, strip, card_line) -> dict:
+    """Phase 25: `render_resumable` on phase 24's scene: the full run bit
+    for bit equal to render_with_progress's f32 frame `strip`, checkpoint
+    writes timed; a resume from its checkpoint with the last two strips
+    cleared renders only those and ends bit-equal; the checkpoint is
+    rejected, with the warning, for the scene with the point light at half
+    intensity, which renders every strip afresh."""
+    import numpy as np
+
+    from rendering_tpu_torch.diff.checkpoint import (
+        load_checkpoint,
+        load_checkpoint_meta,
+        save_checkpoint,
+    )
+    from rendering_tpu_torch.render import pipeline
+
+    w, h = SCENE_W, SCENE_H
+    ck = os.path.join(WORKSPACE, "resumable.npz")
+    saves: list = []
+    with recorded(pipeline, "save_checkpoint", saves):
+        full_s, (full, _) = host_s(lambda: pipeline.render_resumable(
+            scene, ck, resume=False))
+    if not np.array_equal(full.view(np.int32), strip.view(np.int32)):
+        raise AssertionError("render_resumable differs from "
+                             "render_with_progress")
+    _s, _p, _o, frame_ck, mask = load_checkpoint(ck, {}, {})
+    n = len(mask)
+    mask[-2:] = False
+    y0 = (n - 2) * STRIP_ROWS
+    frame_ck[:, y0 * w:] = 0.0
+    save_checkpoint(ck, n - 2, {}, {}, frame=frame_ck, tile_mask=mask,
+                    meta=load_checkpoint_meta(ck))
+    strips: list = []
+    with logged(pipeline, "_render_strip", strips):
+        resume_s, (resumed, _) = host_s(lambda: pipeline.render_resumable(
+            scene, ck))
+    redone = [kw["y0"] for kw in strips]
+    if redone != [y0, y0 + STRIP_ROWS]:
+        raise AssertionError(f"the resume rendered strips at {redone}")
+    if not np.array_equal(resumed.view(np.int32), full.view(np.int32)):
+        raise AssertionError("the resumed frame differs from the full run")
+    l0 = scene.lights[0]
+    changed = dataclasses.replace(scene, lights=(dataclasses.replace(
+        l0, intensity=l0.intensity * 0.5),) + tuple(scene.lights[1:]))
+    buf = io.StringIO()
+    strips.clear()
+    with contextlib.redirect_stdout(buf), \
+            logged(pipeline, "_render_strip", strips):
+        stale_s, _ = host_s(lambda: pipeline.render_resumable(changed, ck))
+    # (The frame itself may not change: the point light's falloff
+    # saturates at 1 around the camera.)
+    if "ignoring checkpoint" not in buf.getvalue() or len(strips) != n:
+        raise AssertionError("a changed scene's checkpoint was not rejected")
+    os.remove(ck)
+    save_s = [c["s"] for c in saves]
+    out = {"full_s": full_s, "resume_s": resume_s, "stale_s": stale_s,
+           "checkpoint_write_s": save_s,
+           "checkpoint_bytes": 3 * w * h * 4, "resumed_strips": redone}
+    print(f"resumable {w}x{h}: full run {full_s:.3f} s, bit-equal to the "
+          f"progress frame; checkpoint writes of {3 * w * h * 4} bytes "
+          f"{[round(x, 4) for x in save_s]} s (mean "
+          f"{sum(save_s) / len(save_s):.4f}); resume of strips {redone} "
+          f"{resume_s:.3f} s, bit-equal; changed scene rejected, rendered "
+          f"afresh in {stale_s:.3f} s on {card_line}")
+    return out
+
+
+def write_debug_scene(key, option, use_ac, obj, progress=False) -> str:
+    path = os.path.join(WORKSPACE, f"debug_{key}.scene")
+    with open(path, "w") as fh:
+        fh.write(DEBUG_SCENE.format(w=SCENE_W, h=SCENE_H, option=option,
+                                    use_ac=use_ac, name=f"debug_{key}",
+                                    obj=obj, progress=int(progress)))
+    return path
+
+
+def show_normals_phase(ci, obj, card_line) -> dict:
+    """Phase 26: a t08-like scene file (showNormals=1, SSAA on) with the
+    250k OBJ at 3840x1080 through `cli.main`: only the closest-hit
+    variant launches (one per ray block of the primary and SSAA passes);
+    the frame is timed; whole-render u8 parity at 384x216, kernels vs
+    plain versions. Then the same file with outputProgress=1 (the
+    scene-file default: `render_with_progress`'s showNormals strips and
+    its SSAA pass): only the closest-hit variant launches, one per ray
+    block of each strip and of the SSAA pass; the BMP within
+    test_golden.py's default limits of the one-shot BMP, and the f32
+    strip frame within JAX's strip tolerance of `render`."""
+    import numpy as np
+
+    from rendering_tpu_torch.render import pipeline
+    from rendering_tpu_torch.utils.bmp import bmp_to_image, load_bmp
+
+    path = write_debug_scene("normals", "showNormals", 1, obj)
+    run = run_cli(ci, path, path[:-len(".scene")] + ".bmp",
+                  records=[("render", pipeline, "render_scene")])
+    scene = run["scene"]
+    st = scene.static
+    blocks = render_blocks(run["rec"]["render"], SCENE_W, SCENE_H)
+    name = "closest_hit" + ("_rootfilter" if st.meshes[0].clipped_by_root
+                            else "")
+    check_launches(run["counts"], {name: blocks},
+                   f"showNormals cli.main ({blocks} ray blocks)")
+    image = run["image"]
+    lit = float((image[1:-1, 1:-1] != 0).any(axis=2).mean())
+    if image.shape != (SCENE_H, SCENE_W, 3) or lit < 0.05:
+        raise AssertionError(f"showNormals BMP {image.shape}, {lit:.4f} lit")
+
+    def frame():
+        with torch.no_grad():
+            pipeline.render_scene(scene)
+
+    frame_ms = mean_ms(frame, reps=2)
+    masked = [int(c["result"][1]["ssaa_masked"]) for c in run["rec"]["render"]]
+    whole_render_parity(ci, lambda w, h: scene_at(run["scene_def"], w, h),
+                        "showNormals, SSAA")
+    print(f"showNormals {SCENE_W}x{SCENE_H}: {name} only; SSAA masked "
+          f"{masked}; {lit:.4f} of the pixels lit; frame {frame_ms:.3f} ms "
+          f"(CUDA events, mean of 2 after 1 warm-up); cli.main "
+          f"{run['total_s']:.3f} s on {card_line}")
+
+    path = write_debug_scene("normals_progress", "showNormals", 1, obj,
+                             progress=True)
+    prog = run_cli(ci, path, path[:-len(".scene")] + ".bmp",
+                   records=[("ssaa", pipeline, "_ssaa_pass")],
+                   logs=[("strip", pipeline, "_render_strip")])
+    rows = [kw["rows"] for kw in prog["rec"]["strip"]]
+    strip_blocks = sum(math.ceil(r * SCENE_W / RAY_BLOCK) for r in rows)
+    caps = [c["kwargs"]["capacity"] for c in prog["rec"]["ssaa"]]
+    ssaa_blocks = sum(math.ceil(4 * cap / RAY_BLOCK) for cap in caps)
+    if len(rows) != -(-SCENE_H // STRIP_ROWS):
+        raise AssertionError(f"showNormals progress: strips {rows}")
+    check_launches(prog["counts"], {name: strip_blocks + ssaa_blocks},
+                   f"showNormals progress cli.main ({strip_blocks} strip "
+                   f"blocks + {ssaa_blocks} SSAA blocks)")
+    measures = golden_measures(prog["image"], image)
+    if any(m > t for m, t in zip(measures, DEFAULT_GOLDEN_TOL)):
+        raise AssertionError(f"showNormals progress BMP measures {measures}"
+                             f" outside {DEFAULT_GOLDEN_TOL}")
+    with torch.no_grad():
+        one, _ = pipeline.render(prog["scene"])
+        strip, _ = pipeline.render_with_progress(prog["scene"],
+                                                 _print=lambda line: None)
+    diff = np.abs(strip - one)
+    n_px = int((diff > 0).any(axis=2).sum())
+    outside = int((diff > 2e-6 + 3e-4 * np.abs(one)).any(axis=2).sum())
+    print(f"showNormals progress {SCENE_W}x{SCENE_H}: {name} only, "
+          f"{strip_blocks} strip blocks + {ssaa_blocks} SSAA blocks; BMP vs "
+          f"the one-shot BMP: measures {measures}; f32 strip frame vs "
+          f"render: {n_px} pixels differing, {outside} outside atol 2e-6 "
+          f"rtol 3e-4; cli.main {prog['total_s']:.3f} s on {card_line}")
+    if outside:
+        raise AssertionError("the showNormals strip frame is outside the "
+                             "strip tolerance of render")
+    return {"launches": {k: n for k, n in run["counts"].items() if n},
+            "frame_ms": frame_ms, "cli_s": run["total_s"],
+            "ssaa_masked": masked, "lit": lit,
+            "progress": {"launches": {k: n for k, n in prog["counts"].items()
+                                      if n},
+                         "strip_blocks": strip_blocks,
+                         "ssaa_blocks": ssaa_blocks, "bmp_measures": measures,
+                         "f32_pixels_differing": n_px,
+                         "f32_pixels_outside_strip_tol": outside,
+                         "cli_s": prog["total_s"]}}
+
+
+def show_ac_phase(ci, obj, card_line):
+    """Phase 27: t09-like scene files (showAC=1) with the 250k OBJ at
+    3840x1080 through `cli.main`, useAC 1 and 0: the walk's kernel
+    launches once per ray block and nothing else does; Step 1, the plain
+    walk on the card on the middle 131,072-ray block, scaled to the
+    frame's blocks, against the same scene's normal frame; the kernel's
+    counts equal the plain walk's on every block of the frame; the
+    kernel's time and bound on the middle block. Returns (numbers, the
+    kernel row's numbers at useAC 1)."""
+    import numpy as np
+
+    from rendering_tpu_torch.ops import traversal
+    from rendering_tpu_torch.render import pipeline
+    from rendering_tpu_torch.render.raygen import primary_rays
+
+    out, row = {}, None
+    n_blocks = math.ceil(SCENE_W * SCENE_H / RAY_BLOCK)
+    for use_ac in (1, 0):
+        path = write_debug_scene(f"ac{use_ac}", "showAC", use_ac, obj)
+        run = run_cli(ci, path, path[:-len(".scene")] + ".bmp")
+        check_launches(run["counts"], {"ac_walk": n_blocks},
+                       f"showAC useAC={use_ac} cli.main ({n_blocks} blocks)")
+        scene = run["scene"]
+        m = scene.meshes[0]
+        nodes = (m.node_min, m.node_max, m.skip, m.real_flag)
+        ro, rd, _ = primary_rays(scene, offset=0.5)
+        blocks = [(ro[b:b + RAY_BLOCK].contiguous(),
+                   rd[b:b + RAY_BLOCK].contiguous())
+                  for b in range(0, ro.shape[0], RAY_BLOCK)]
+        mid = n_blocks // 2
+        flag = bool(use_ac)
+        plain_s, (c_plain, tests) = host_s(
+            lambda: traversal.count_ac_nodes_plain(*nodes, *blocks[mid],
+                                                   use_ac=flag))
+        frame_plain_s, mismatches, err, c_max = 0.0, 0, 0, 0
+        for ro_b, rd_b in blocks:
+            dt, (want, _) = host_s(lambda: traversal.count_ac_nodes_plain(
+                *nodes, ro_b, rd_b, use_ac=flag))
+            frame_plain_s += dt
+            got = traversal.count_ac_nodes(m, ro_b, rd_b, use_ac=flag)
+            mismatches += int((got != want).sum())
+            err = max(err, int((got - want).abs().max()))
+            c_max = max(c_max, int(want.max()))
+        if mismatches or c_max <= 1:
+            raise AssertionError(f"showAC useAC={use_ac}: {mismatches} "
+                                 f"counts differ from the plain walk (max "
+                                 f"|diff| {err}), max {c_max}")
+        ms = mean_ms(lambda: traversal.count_ac_nodes(m, *blocks[mid],
+                                                      use_ac=flag), reps=5)
+        n_rays = blocks[mid][0].shape[0]
+        n_nodes = int(m.node_min.shape[0])
+        ops_ms = int(tests) * AC_SLAB_OPS / F32_OPS_RATE * 1e3
+        # useAC 1 reads the rays and the node arrays and writes a count a
+        # ray; useAC 0 only reads real_flag and writes the counts (each
+        # block sums all of real_flag again, which the bound does not
+        # charge).
+        bytes_ms = ((n_rays * (24 + 4) + n_nodes * 32) if use_ac
+                    else (n_rays * 4 + n_nodes * 4)) / HBM_RATE * 1e3
+        res = {"nodes": n_nodes, "real_nodes": int((m.real_flag > 0).sum()),
+               "max_count": c_max, "max_abs_err": err,
+               "box_tests_mid_block": int(tests),
+               "plain_mid_block_s": plain_s,
+               "plain_scaled_frame_s": plain_s * n_blocks,
+               "plain_frame_s": frame_plain_s, "kernel_ms": ms,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "cli_s": run["total_s"],
+               "launches": {k: n for k, n in run["counts"].items() if n}}
+        if use_ac:
+            normal = with_settings(scene, show_ac=False)
+
+            def normal_frame():
+                with torch.no_grad():
+                    pipeline.render_scene(normal)
+
+            res["normal_frame_ms"] = mean_ms(normal_frame, reps=1)
+            res["kernel_needed"] = (res["plain_scaled_frame_s"] * 1e3
+                                    > res["normal_frame_ms"])
+            row = {"launches": run["counts"]["ac_walk"], "ms": ms,
+                   "plain_ms": plain_s * 1e3, "bound_ms": res["bound_ms"],
+                   "bound_by": res["bound_by"], "max_abs_err": float(err)}
+        out[f"use_ac_{use_ac}"] = res
+        print(f"showAC useAC={use_ac} {SCENE_W}x{SCENE_H}: {json.dumps(res)} "
+              f"on {card_line}")
+    if not out["use_ac_1"]["kernel_needed"]:
+        print("showAC: the plain walk scaled to the frame is below the "
+              "normal frame: by Step 1 no kernel was needed")
+    return out, row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1414,6 +1911,7 @@ def main() -> int:
     )
     from rendering_tpu_torch.ops import cuda_intersect as ci
     from rendering_tpu_torch.ops import microbench as mb
+    from rendering_tpu_torch.ops import traversal
     from rendering_tpu_torch.render.pipeline import render_scene
     from rendering_tpu_torch.utils import nvcc
 
@@ -1427,7 +1925,8 @@ def main() -> int:
     # ---- build: one nvcc per source, all started together -----------------
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        built = list(pool.map(nvcc.build_library, (ci.SOURCE, mb.SOURCE)))
+        built = list(pool.map(nvcc.build_library,
+                              (ci.SOURCE, mb.SOURCE, traversal.SOURCE)))
     for path, log in built:
         print(f"built {path}")
         for line in log.splitlines():
@@ -1897,6 +2396,28 @@ def main() -> int:
     transparent = transparent_phase(ci)
     lap("23 transparent mesh")
 
+    # ---- 24. outputProgress=1 through the CLI: the strip renderer ----------
+    progress, prog_scene, strip_frame = progress_phase(
+        ci, objs["shotgun"], scene_paths[False][:-len(".scene")] + ".bmp",
+        card_line)
+    lap("24 outputProgress=1 cli")
+
+    # ---- 25. render_resumable: checkpoints, resume, a stale checkpoint ----
+    resumable = resumable_phase(prog_scene, strip_frame, card_line)
+    del prog_scene, strip_frame
+    torch.cuda.empty_cache()
+    lap("25 resumable")
+
+    # ---- 26. showNormals through the CLI (closest hits only) ---------------
+    normals = show_normals_phase(ci, objs["shotgun"], card_line)
+    torch.cuda.empty_cache()
+    lap("26 showNormals cli")
+
+    # ---- 27. showAC through the CLI: the walk's kernel against the plain ----
+    show_ac, ac_row = show_ac_phase(ci, objs["shotgun"], card_line)
+    torch.cuda.empty_cache()
+    lap("27 showAC cli")
+
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
         k: mmt["launches"][k] for k in ("fused_closest_hit", "fused_any_hit")},
@@ -1925,6 +2446,8 @@ def main() -> int:
                             "launches": launches.get(old, 0)}
         rows.append(row)
     rows += probe_rows
+    rows.append({"name": "ac_walk", "route": "cuda", "source": AC_SOURCE,
+                 "replaces": AC_REPLACES, **ac_row, "library_ms": None})
 
     print(json.dumps({
         "card": card_line,
@@ -1946,6 +2469,8 @@ def main() -> int:
                      "adversarial": adversarial, "transparent": transparent,
                      "flagship_steps_by_frac": frac_steps,
                      "t01": {"measures": t01, "dropped": t01_dropped}},
+        "progress": progress, "resumable": resumable,
+        "show_normals": normals, "show_ac": show_ac,
         "intersect_sass": walk_sass,
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
                    "k9_ab": kprobe["ab"], "k9_sass": kprobe["sass"],

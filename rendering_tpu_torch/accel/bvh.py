@@ -17,9 +17,10 @@ binarySearchSAH,getOptimalSplit}` (src/objects.cpp:461-763):
 The tree is flattened DFS left-first into a threaded layout (on an AABB
 miss a walk jumps to `skip[i]`), with leaves chunked to `leaf_chunk`
 triangles. The port's intersection kernels read only the per-triangle
-reach boxes (the root filter, K4) and the statistics read the node and
-copy counts; the flat arrays are kept so the build stays field-equal to
-the JAX package's.
+reach boxes (the root filter, K4), the showAC walk (`ops/traversal.py`)
+reads node_min, node_max, skip and real_flag, and the statistics read the
+node and copy counts; the leaf arrays are kept so the build stays
+field-equal to the JAX package's.
 """
 
 from __future__ import annotations

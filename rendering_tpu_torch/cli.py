@@ -10,11 +10,14 @@ test counters, the BVH counts and the rays cast are printed as the
 reference's stats::printStats does.
 
 The render runs on the CUDA device; `main(argv, device="cpu")` runs the
-plain PyTorch versions of the kernels on the CPU instead. Scene files
-default to outputProgress=1, whose strip renderer is not ported yet: such
-a file raises NotImplementedError (set outputProgress=0), as do
---geo-shard and --trace-dir. --no-shard is accepted and changes nothing
-on one device.
+plain PyTorch versions of the kernels on the CPU instead. With
+outputProgress=1, the scene-file default, the frame renders in strips
+with progress prints (`render_with_progress`), as the JAX package's
+single-device path does; otherwise, and under showAC, in one pass
+(`render`). showNormals and showAC render their debug images.
+--geo-shard (multi-device) and --trace-dir (profiling) raise
+NotImplementedError: not ported yet. --no-shard is accepted and changes
+nothing on one device.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import sys
 
 from rendering_tpu_torch.device import resolve_device
 from rendering_tpu_torch.models.scene import load_scene
-from rendering_tpu_torch.render.pipeline import render
+from rendering_tpu_torch.render.pipeline import render, render_with_progress
 from rendering_tpu_torch.utils.bmp import save_bmp
 from rendering_tpu_torch.utils.stats import RenderStats
 from rendering_tpu_torch.utils.timer import Timer
@@ -59,14 +62,12 @@ def main(argv=None, *, device=None) -> int:
     t_load.enable_output = settings.enable_output
     total.enable_output = settings.enable_output
     t_load.stop()
-    if settings.output_progress and not settings.show_ac:
-        raise NotImplementedError(
-            "outputProgress=1 (the strip renderer with progress prints) is "
-            "not ported yet; it comes with the progress slice of the port. "
-            "Set outputProgress=0 in the scene's [options].")
 
     t_render = Timer("Render scene", settings.enable_output, device=device)
-    frame, aux = render(scene, out_u8=True)
+    if settings.output_progress and not settings.show_ac:
+        frame, aux = render_with_progress(scene, out_u8=True)
+    else:
+        frame, aux = render(scene, out_u8=True)
     t_render.stop()
 
     if settings.collect_statistics:

@@ -11,8 +11,10 @@ flattens the JAX scene, e.g.
     static = dataclasses.asdict(scene.static)
 
 Keys are dotted paths ("cam_pos", "meshes.0.v", "lights.1.color").
-Only the canonical arrays and each mesh's BVH reach boxes
-("meshes.0.reach_lo", "meshes.0.reach_hi") are read; the kernel chunk
+Only the canonical arrays, each mesh's BVH reach boxes
+("meshes.0.reach_lo", "meshes.0.reach_hi") and its BVH node arrays
+("meshes.0.node_min", "node_max", "skip", "real_flag": the showAC walk's)
+are read; the kernel chunk
 tables (per mesh, or fused for two or more meshes) are rebuilt from
 them exactly as `models.scene.build_scene` builds them, and the gather
 tables are derived in each render. The BVH counts (n_real_nodes,
@@ -91,6 +93,8 @@ def scene_from_numpy(leaves: dict[str, np.ndarray], static: dict,
             ms, arr("v"), arr("n"), arr("uv"), arr("tangent"),
             arr("bitangent"), arr("diffuse_map"), arr("normal_map"),
             arr("specular_map"), reach=reach[-1], fused=st.n_meshes >= 2,
+            nodes=tuple(arr(k) for k in ("node_min", "node_max", "skip",
+                                         "real_flag")),
         ))
     ft, fts = fused_tables(
         st, [leaves[f"meshes.{i}.v"] for i in range(st.n_meshes)], reach)

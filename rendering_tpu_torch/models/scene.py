@@ -5,7 +5,8 @@ planes as (N, 3) tables, each mesh as Morton-ordered per-triangle
 arrays plus its kernel chunk tables (or, with two or more meshes, the
 scene's fused tables), lights as small per-light records. The build
 runs the SAH BVH of each mesh on the host for its reach boxes (the
-kernels' root filter) and its statistics counts. `load_scene` parses a
+kernels' root filter), its node arrays (the showAC walk) and its
+statistics counts. `load_scene` parses a
 `.scene` file and builds it. The gather
 tables that surface shading reads (vgeoT, mapsT) are derived from the
 canonical arrays in every render (`render.pipeline.derive_mesh_tables`),
@@ -150,6 +151,14 @@ class MeshData(_Movable):
     # Kernel chunk tables; None for a mesh without triangles and in a
     # scene of two or more meshes, which reads the fused tables instead.
     itables: Optional[IntersectTables]
+    # The flat BVH (accel.bvh.FlatBVH) that the showAC walk reads
+    # (ops/traversal.py), kept in a fused scene too: node boxes, the
+    # jump target on a box miss, and the first-flat-node-of-an-AC-node
+    # flag.
+    node_min: Optional[torch.Tensor] = None   # (N, 3) f32
+    node_max: Optional[torch.Tensor] = None   # (N, 3) f32
+    skip: Optional[torch.Tensor] = None       # (N,) int32
+    real_flag: Optional[torch.Tensor] = None  # (N,) int32
     # Derived in each render from the arrays above, None on a built
     # scene (render.pipeline.derive_mesh_tables):
     # one transposed gather table, component-major: rows 0-8 vertices,
@@ -227,17 +236,23 @@ def _packable_wh(whs) -> tuple[int, int]:
 
 def mesh_data(ms: MeshStatic, v, n, uv, tangent, bitangent,
               diffuse_map=None, normal_map=None, specular_map=None, *,
-              reach=None, fused: bool = False) -> MeshData:
+              reach=None, nodes=None, fused: bool = False) -> MeshData:
     """MeshData from host numpy arrays already in Morton order, as CPU
     tensors, with the kernel chunk tables (host numpy, rows 9-14 the BVH
     reach boxes `reach` = (lo, hi)) unless the scene fuses its meshes
-    (`fused`)."""
+    (`fused`), and the BVH node arrays `nodes` = (node_min, node_max,
+    skip, real_flag)."""
     t_count = ms.n_tris
 
     def tensor(a):
         return (None if a is None
                 else torch.from_numpy(np.array(a, dtype=np.float32)))
 
+    def index(a):
+        return (None if a is None
+                else torch.from_numpy(np.array(a, dtype=np.int32)))
+
+    node_min, node_max, skip, real_flag = nodes or (None,) * 4
     return MeshData(
         v=tensor(v), n=tensor(n), uv=tensor(uv), tangent=tensor(tangent),
         bitangent=tensor(bitangent), diffuse_map=tensor(diffuse_map),
@@ -245,6 +260,8 @@ def mesh_data(ms: MeshStatic, v, n, uv, tangent, bitangent,
         itables=(build_intersect_tables(
             v, tri_chunk=default_tri_chunk(t_count), reach=reach)
             if t_count and not fused else None),
+        node_min=tensor(node_min), node_max=tensor(node_max),
+        skip=index(skip), real_flag=index(real_flag),
     )
 
 
@@ -345,7 +362,9 @@ def build_scene(sd: SceneDef, device=None) -> SceneData:
             mesh_reach.append(reach)
             meshes.append(mesh_data(ms, v, nrm, uv, tan, bit, o.diffuse_map,
                                     o.normal_map, o.specular_map,
-                                    reach=reach, fused=fused))
+                                    reach=reach, fused=fused,
+                                    nodes=(bvh.node_min, bvh.node_max,
+                                           bvh.skip, bvh.real_flag)))
         else:
             raise ValueError(f"unknown object kind {o.kind}")
 

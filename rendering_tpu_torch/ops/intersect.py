@@ -1,4 +1,5 @@
-"""Primitive intersection tests on (3, R) row tensors.
+"""Primitive intersection tests on (3, R) row tensors, and the AABB
+slab test on (R, 3) rays that the showAC walk (`ops/traversal.py`) runs.
 
 Each reproduces the f32 semantics of its counterpart in
 `rendering_tpu.ops.intersect`. Misses return +FLT_MAX so that a
@@ -82,3 +83,29 @@ def ray_triangle_r(ro3, rd3, v03, v13, v23, backface_culling: bool):
     t = dot_r(v0v2, qvec) * inv_det
     ok = ok & (t >= 0)
     return torch.where(ok, t, FLT_MAX), u, v, ok
+
+
+def slab_test(ro, rd, bmin, bmax):
+    """AABB slab test (AccelerationStructure::intersectBox,
+    src/objects.cpp:534-570) on (..., 3) rays and boxes, a literal
+    transcription as in the JAX package, so the IEEE inf/nan corner
+    cases match: every comparison is the reference's (false on a NaN),
+    no min/max. Boxes entirely behind the origin count as hits (the
+    reference has no tmax >= 0 check). Returns (hit, tmin, tmax)."""
+    inv = 1.0 / rd
+    neg = inv < 0
+    lo = torch.where(neg, bmax, bmin)
+    hi = torch.where(neg, bmin, bmax)
+    tmin = (lo[..., 0] - ro[..., 0]) * inv[..., 0]
+    tmax = (hi[..., 0] - ro[..., 0]) * inv[..., 0]
+    tymin = (lo[..., 1] - ro[..., 1]) * inv[..., 1]
+    tymax = (hi[..., 1] - ro[..., 1]) * inv[..., 1]
+    hit = ~((tmin > tymax) | (tymin > tmax))
+    tmin = torch.where(tymin > tmin, tymin, tmin)
+    tmax = torch.where(tymax < tmax, tymax, tmax)
+    tzmin = (lo[..., 2] - ro[..., 2]) * inv[..., 2]
+    tzmax = (hi[..., 2] - ro[..., 2]) * inv[..., 2]
+    hit = hit & ~((tmin > tzmax) | (tzmin > tmax))
+    tmin = torch.where(tzmin > tmin, tzmin, tmin)
+    tmax = torch.where(tzmax < tmax, tzmax, tmax)
+    return hit, tmin, tmax

@@ -25,7 +25,8 @@ two-phase K6); a scene of two or more queries the fused tables of all of
 them at once (K5). With useAC, a mesh clipped by its root box is queried
 through the root filter (K4); with collectStatistics the queries count
 their tests (K3) into the stats. The gather tables come from
-`pipeline.derive_mesh_tables`.
+`pipeline.derive_mesh_tables`. `shade_normals` is the showNormals pass:
+the closest hit and its normal, one bounce.
 """
 
 from __future__ import annotations
@@ -869,3 +870,28 @@ def integrate(scene, ro, rd, pix, weight, n_pixels: int, *,
     if out_slots:
         accum3 = accum3[:, :r_in]
     return accum3, stats
+
+
+def shade_normals(scene, ro, rd, *, ray_block: int = DEFAULT_RAY_BLOCK):
+    """showNormals (scene.cpp:771-772, JAX `shade_normals`): the first
+    hit's normal as n / 2 + 0.5, a miss the skybox or the background.
+    One bounce whatever the materials: the reference returns before any
+    recursion. ro/rd (Q, 3), in blocks of `ray_block` rays (the closest
+    hit of each block, K1 or its K4/K5 variant); returns (3, Q). The
+    queries' counters are not kept: the pass reports only its rays."""
+    st = scene.static
+    q = ro.shape[0]
+    if q == 0:
+        return torch.zeros((3, 0), device=ro.device)
+    zeros = torch.zeros((q,), device=ro.device)
+    queue = _to_blocks(ro, rd, zeros, zeros, min(ray_block, q))
+    sky = scene.skybox if st.settings.use_skybox else None
+    out = []
+    for ro3, rd3 in zip(queue.ro3, queue.rd3):
+        ro3, rd3 = ro3.contiguous(), rd3.contiguous()
+        hit, _ = trace_closest(scene, ro3, rd3)
+        hit_point3 = ro3 + rd3 * torch.where(hit.hit, hit.t, 1.0)[None, :]
+        normal3, _ = surface_data(scene, hit, hit_point3)
+        sky3 = sample_skybox_r(sky, rd3, scene.bg_color)
+        out.append(torch.where(hit.hit[None, :], normal3 / 2.0 + 0.5, sky3))
+    return torch.cat(out, dim=1)[:, :q]

@@ -3,7 +3,9 @@
 bouncing scene), and scene files with a rotated OBJ
 (clipped by its root box, so every query runs the root filter, K4) with
 adaptive SSAA on, against the JAX package's `load_scene` + `render` with
-its Pallas kernel in interpret mode.
+its Pallas kernel in interpret mode; with outputProgress=1 (the strip
+renderer), showNormals=1 and showAC=1 against the frame JAX's CLI path
+renders.
 
 Tolerances: the golden scene as tests/test_golden.py holds the JAX
 package (its per-scene fractions and mean |diff|). Against JAX: Sobel
@@ -27,6 +29,9 @@ from rendering_tpu.models.scene import load_scene as j_load_scene
 from rendering_tpu.models.settings import RenderSettings as JSettings
 from rendering_tpu.ops.sobel import sobel_mask as j_sobel_mask
 from rendering_tpu.render.pipeline import render as j_render
+from rendering_tpu.render.pipeline import (
+    render_with_progress as j_render_with_progress,
+)
 from rendering_tpu.utils.stats import RenderStats as JRenderStats
 from rendering_tpu_torch import cli
 from rendering_tpu_torch.flagship import procedural_mesh
@@ -204,17 +209,54 @@ def test_statistics_match_jax(obj_workspace, capsys):
     assert gt1 <= DEFAULT_TOL[0] and gt8 <= DEFAULT_TOL[1]
 
 
-def test_cli_unported_options_raise(obj_workspace):
-    """outputProgress=1 (the scene-file default), --geo-shard and
-    --trace-dir raise NotImplementedError naming what is missing."""
-    path = _write_scene(obj_workspace, "prog.scene")
+def _progress_scene(ws, name, **options):
+    """The clipped-OBJ scene file with outputProgress=1 (the scene-file
+    default) and further [options] lines."""
+    path = _write_scene(ws, name)
     with open(path) as fh:
         text = fh.read().replace("outputProgress=0", "outputProgress=1")
+    extra = "".join(f"{k}={v}\n" for k, v in options.items())
     with open(path, "w") as fh:
-        fh.write(text)
-    with pytest.raises(NotImplementedError, match="outputProgress"):
-        cli.main([path], device="cpu")
+        fh.write(text.replace("[options]\n", "[options]\n" + extra))
+    return path
+
+
+def test_cli_unported_options_raise(obj_workspace):
+    """outputProgress=1 (the scene-file default) renders through the strip
+    renderer: the BMP is within DEFAULT_TOL of JAX's render_with_progress
+    u8 frame, each package from its own rays. --geo-shard and
+    --trace-dir raise NotImplementedError naming what is missing."""
+    path = _progress_scene(obj_workspace, "prog.scene")
+    js = j_load_scene(path, JSettings(pallas_interpret=True))
+    assert js.static.settings.output_progress
+    j_u8, _ = j_render_with_progress(js, out_u8=True, _print=lambda s: None)
+    assert cli.main([path, "--output", "prog.bmp"], device="cpu") == 0
+    t_u8 = bmp_to_image(load_bmp("prog.bmp"))
+    assert t_u8.shape == np.shape(j_u8) == (32, 64, 3)
+    gt1, gt8 = golden_fractions(t_u8, np.asarray(j_u8))
+    assert gt1 <= DEFAULT_TOL[0] and gt8 <= DEFAULT_TOL[1]
     with pytest.raises(NotImplementedError, match="geo-shard"):
         cli.main([path, "--geo-shard", "2"], device="cpu")
     with pytest.raises(NotImplementedError, match="trace-dir"):
         cli.main([path, "--trace-dir", "tr"], device="cpu")
+
+
+@pytest.mark.parametrize("option", ["showNormals", "showAC"])
+def test_cli_debug_passes_match_jax(obj_workspace, option):
+    """A scene file with showNormals=1 (through the strip renderer, SSAA
+    on) or showAC=1 (one pass) renders through the port's CLI to a BMP
+    within DEFAULT_TOL of the frame JAX's CLI path renders (its
+    render_with_progress or render), each package from its own rays."""
+    path = _progress_scene(obj_workspace, "debug.scene", **{option: 1})
+    js = j_load_scene(path, JSettings(pallas_interpret=True))
+    if option == "showAC":
+        j_u8, _ = j_render(js, out_u8=True)
+    else:
+        j_u8, _ = j_render_with_progress(js, out_u8=True,
+                                         _print=lambda s: None)
+    assert cli.main([path, "--output", "debug.bmp"], device="cpu") == 0
+    t_u8 = bmp_to_image(load_bmp("debug.bmp"))
+    assert t_u8.shape == (32, 64, 3)
+    gt1, gt8 = golden_fractions(t_u8, np.asarray(j_u8))
+    assert gt1 <= DEFAULT_TOL[0] and gt8 <= DEFAULT_TOL[1]
+    assert len(np.unique(t_u8.reshape(-1, 3), axis=0)) > 8

@@ -803,3 +803,57 @@ def test_pair_product_forms_reject_what_their_kernels_refuse(cuda):
     with pytest.raises(ValueError, match="multiple"):
         mb.pack_tables(torch.ones((2, 4 * 16, k), device=cuda), 16)
     assert before == {n: v.launches for n, v in mb.KERNELS.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_ac", [True, False])
+def test_ac_walk_kernel_matches_plain(cuda, use_ac):
+    """The showAC walk's kernel (csrc/bvh_walk.cu) against its plain
+    version on a rotated 20k mesh's BVH: seeded rays from outside and
+    inside the mesh, axis-parallel ones among them, a ragged count;
+    counts equal, one launch."""
+    from rendering_tpu_torch.ops import traversal
+
+    scene = build_flagship_scene(64, 32, n_tris=20_000, device=cuda)
+    m = scene.meshes[0]
+    rng = np.random.default_rng(3)
+    n = 3 * 4096 + 77
+    ro = rng.normal(0, 1.5, (n, 3)).astype(np.float32)
+    rd = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    rd[: n // 8, rng.integers(0, 3, n // 8)] = 0.0
+    ro, rd = (torch.from_numpy(a).to(cuda) for a in (ro, rd))
+    before = traversal.KERNELS["ac_walk"].launches
+    got = traversal.count_ac_nodes(m, ro, rd, use_ac=use_ac)
+    want, tests = traversal.count_ac_nodes_plain(
+        m.node_min, m.node_max, m.skip, m.real_flag, ro, rd, use_ac=use_ac)
+    torch.cuda.synchronize()
+    assert traversal.KERNELS["ac_walk"].launches == before + 1
+    assert torch.equal(got, want)
+    assert int(want.max()) > 1 and (int(tests) > n) == use_ac
+
+
+@pytest.mark.cuda
+def test_progress_render_on_card_matches_render(cuda):
+    """A 384x216 progress render of the flagship scene with SSAA through
+    the kernels: within JAX's strip tolerance of render() on the card,
+    with the primary strips' closest- and any-hit launches, one a ray
+    block of each strip."""
+    from rendering_tpu_torch.render.pipeline import (
+        render,
+        render_with_progress,
+    )
+
+    scene = build_flagship_scene(384, 216, n_tris=20_000, enable_ssaa=True,
+                                 device=cuda)
+    ref, _ = render(scene)
+    for k in ci.KERNELS.values():
+        k.launches = 0
+    frame, aux = render_with_progress(scene, strip_rows=64,
+                                      _print=lambda s: None)
+    torch.cuda.synchronize()
+    strips = 4  # rows 64, 64, 64, 24: one ray block each
+    ssaa = -(-4 * int(384 * 216 * 0.25) // (1 << 17))
+    assert ci.KERNELS["closest_hit"].launches == strips + ssaa
+    assert ci.KERNELS["any_hit"].launches == strips + ssaa
+    np.testing.assert_allclose(frame, ref, atol=2e-6, rtol=3e-4)
+    assert aux["ssaa_masked"] > 0

@@ -228,12 +228,32 @@ def test_render_is_differentiable():
 def test_unported_features_raise(change):
     """Features of later slices raise NotImplementedError rather than
     render something else. Those that later slices ported render instead:
-    adaptive SSAA and the statistics counters (the scene-file slice), and
-    a reflective or transparent mesh (the bouncing slice), whose frame
-    matches the JAX package's from the same primary rays."""
+    adaptive SSAA and the statistics counters (the scene-file slice), a
+    reflective or transparent mesh (the bouncing slice), whose frame
+    matches the JAX package's from the same primary rays, and the debug
+    passes (the debug slice): showNormals within atol 2e-5 of JAX's frame
+    from the same primary rays, showAC bit-equal from the same +0.5
+    rays."""
+    if change in ("show_normals", "show_ac"):
+        js = j_flagship(16, 8, n_tris=200, with_maps=False,
+                        settings_overrides={change: True, **INTERPRET})
+        ts = port_scene(js)
+        offset = 0.5 if change == "show_ac" else 1.0
+        with shared_primary_rays(js, offset=offset):
+            j_frame = np.array(j_render_fresh(js))
+            with torch.no_grad():
+                t_frame, aux = render_scene(ts)
+        if change == "show_ac":
+            assert np.array_equal(t_frame.numpy().view(np.int32),
+                                  j_frame.view(np.int32))
+            assert t_frame.max() == 1.0 and t_frame.min() < 1.0
+        else:
+            np.testing.assert_allclose(t_frame.numpy(), j_frame, rtol=0,
+                                       atol=2e-5)
+            assert aux["stats"]["rays_casted"] == 16 * 8
+        return
     overrides = {}
-    if change in ("enable_ssaa", "show_normals", "show_ac",
-                  "collect_statistics"):
+    if change in ("enable_ssaa", "collect_statistics"):
         overrides[change] = True
     ts = t_flagship(16, 8, n_tris=200, with_maps=False, device="cpu",
                     settings_overrides=overrides)
@@ -258,14 +278,10 @@ def test_unported_features_raise(change):
         assert_bounce_frames_agree(t_frame.detach().numpy(), j_frame)
         assert aux["stats"]["rays_casted"] > 3 * 16 * 8
         return
-    if change in ("enable_ssaa", "collect_statistics"):
-        frame, aux = render_scene(ts)
-        assert torch.isfinite(frame).all()
-        counted = int(aux["stats"]["ray_tri_tests"]) > 0
-        assert counted == (change == "collect_statistics")
-        return
-    with pytest.raises(NotImplementedError):
-        render_scene(ts)
+    frame, aux = render_scene(ts)
+    assert torch.isfinite(frame).all()
+    counted = int(aux["stats"]["ray_tri_tests"]) > 0
+    assert counted == (change == "collect_statistics")
 
 
 def test_multi_mesh_and_clipped_mesh_raise():

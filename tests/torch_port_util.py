@@ -2,8 +2,8 @@
 carrying a JAX scene across as numpy, the two-mesh scene of
 tests/test_fused.py for both packages, the JAX tiny scene and settings
 or material changes of a JAX scene, renders of both packages from the
-same primary rays, the gradient loss weights, and the golden u8
-measures."""
+same primary rays (and strip renders from the same strip rays), the
+gradient loss weights, and the golden u8 measures."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 import rendering_tpu.render.pipeline as j_pipeline
 import rendering_tpu_torch.render.pipeline as t_pipeline
+from rendering_tpu.render.raygen import pixel_dirs as j_pixel_dirs
 from rendering_tpu.render.raygen import primary_rays as j_primary_rays
 from rendering_tpu_torch.convert import scene_from_numpy
 
@@ -180,9 +181,10 @@ def golden_fractions(a_u8, b_u8):
 
 
 @contextlib.contextmanager
-def shared_primary_rays(jax_scene):
+def shared_primary_rays(jax_scene, offset: float = 1.0):
     """Within the block, both packages' render pipelines take the same
-    primary rays: the JAX package's, computed once outside any jit. XLA
+    primary rays at `offset` (1.0 the frame's, 0.5 showAC's): the JAX
+    package's, computed once outside any jit. XLA
     rounds the ray normalization differently inside and outside a jit
     (1 ulp on ~1% of the rays at 64x32), and an ulp can move a ray
     across a silhouette or a triangle edge, which changes that pixel's
@@ -190,15 +192,16 @@ def shared_primary_rays(jax_scene):
     with `j_render_fresh` below, which traces anew, so no trace made
     before the block is reused."""
     ro, rd, pix = (np.array(x) for x in j_primary_rays(jax_scene,
-                                                         offset=1.0))
+                                                         offset=offset))
+    want = offset
 
     def j_rays(scene, offset=1.0):
-        assert offset == 1.0
+        assert offset == want
         return jax.numpy.asarray(ro), jax.numpy.asarray(rd), \
             jax.numpy.asarray(pix)
 
     def t_rays(scene, offset=1.0):
-        assert offset == 1.0
+        assert offset == want
         return tuple(torch.from_numpy(x).to(scene.device)
                      for x in (ro, rd, pix))
 
@@ -208,6 +211,43 @@ def shared_primary_rays(jax_scene):
         yield
     finally:
         j_pipeline.primary_rays, t_pipeline.primary_rays = saved
+
+
+@contextlib.contextmanager
+def shared_strip_rays(jax_scene):
+    """Within the block, both packages' strip renders (`_render_strip`)
+    take the same primary directions: JAX's eager `pixel_dirs` of every
+    pixel at the frame's offset, looked up by pixel. Inside its jitted
+    strip XLA rounds the normalization an ulp apart from an eager run
+    (see shared_primary_rays), which moves silhouette pixels of a
+    bouncing frame. The JAX package's jitted strip functions are dropped
+    before and after the block (`_make_strip_fns`' cache), so its strips
+    trace anew with the shared directions."""
+    st = jax_scene.static.settings
+    w, h = st.width, st.height
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    table = np.array(j_pixel_dirs(jax_scene, jax.numpy.asarray(xs.ravel()),
+                                  jax.numpy.asarray(ys.ravel()), 1.0, 1.0))
+
+    def j_dirs(scene, xs, ys, ox, oy):
+        assert (ox, oy) == (1.0, 1.0)
+        idx = ys.astype(jax.numpy.int32) * w + xs.astype(jax.numpy.int32)
+        return jax.numpy.asarray(table)[idx]
+
+    def t_dirs(scene, xs, ys, ox, oy):
+        assert (ox, oy) == (1.0, 1.0)
+        idx = ys.long() * w + xs.long()
+        return torch.from_numpy(table).to(xs.device)[idx]
+
+    saved = j_pipeline.pixel_dirs, t_pipeline.pixel_dirs
+    j_pipeline._make_strip_fns.cache_clear()
+    j_pipeline.pixel_dirs, t_pipeline.pixel_dirs = j_dirs, t_dirs
+    try:
+        yield
+    finally:
+        j_pipeline.pixel_dirs, t_pipeline.pixel_dirs = saved
+        j_pipeline._make_strip_fns.cache_clear()
 
 
 def j_render_fresh(scene):
