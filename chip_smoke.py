@@ -177,6 +177,34 @@ The scene-file default path and the debug passes (t10's workload with the
     normal frame; the kernel's counts equal the plain walk's on every
     block of the frame, and its time and bound on the middle block.
 
+The inverse-rendering extras on the flagship (the 250k procedural mesh
+with the committed maps) at 3840x1080, through the port's demos
+(examples/*_torch.py), `render/animation.py` and `utils/profiling.py`:
+
+28. the texture-paint demo's step (the diffuse map from flat grey, Adam,
+    the map clamped): K1 and K2 once per ray block (32 each) and nothing
+    else, the map gradient finite, the covered texels counted, two steps
+    from the same state bit-equal, the loss falling over 5 steps; the
+    step time, rays/s and peak memory; a traced step: the top kernels by
+    `op_profile` and the texel gradient's share of the device time (the
+    backward of the map gather, the span IndexBackward0); at 384x216 the
+    gradient with the kernels bit-equal to the plain versions';
+29. the camera demo's pose step (`euler_matrix_j`, the clipped Adam on a
+    cosine schedule): launches as in 28, finite nonzero gradients, two
+    steps bit-equal, the step time; then central differences against
+    autograd on the card on tests/test_grad_camera_reference.py's
+    infinite plane at 200x150 (the port's f32 frame mean; eps 0.05 for
+    px, pz and 1 degree for rx; rtol 0.08);
+30. a turntable of 4 `orbit_cameras` outside the mesh's bounds: K1 and
+    K2 once per ray block of each frame, `render_frames` bit-equal to
+    single `render`s, `render_frames_pipelined` (depth 2, f32 and u8)
+    equal to `render_frames`; ms a frame by the host clock, the pull
+    included, sequential and pipelined in turns; again for two frames
+    with SSAA on;
+31. `cli.main([scene, "--trace-dir", d])` on phase 10's scene file: one
+    trace written, `op_profile` rows that include the closest and
+    any-hit walk kernels; the top five rows printed.
+
 Every query a phase holds to its plain version (phases 3, 7, 11, 12, 13,
 14, 16, 23) is also timed against the tile walk its kernel replaced, in
 turns (tile, new, new, tile; `ms` is the new walk's, `tile_walk_ms` the
@@ -382,6 +410,46 @@ AC_SLAB_OPS = 3 * 6 + 4 + 2 * 2
 AC_SOURCE = "rendering_tpu_torch/csrc/bvh_walk.cu"
 # No Pallas kernel: the JAX package's walk is this XLA while loop.
 AC_REPLACES = "rendering_tpu/ops/traversal.py:161"
+# The inverse-rendering extras (phases 28-31): the demos' defaults.
+PAINT_LR = 0.05          # examples/texture_paint_demo_torch.py --lr
+PAINT_LOSS_STEPS = 5
+POSE_LR = 0.05           # examples/inverse_demo_torch.py --lr
+POSE_STEPS = 150         # its --steps: the cosine schedule's length
+# The turntable: cameras on a circle outside the flagship mesh's bounds
+# (centre (-0.1, 0, -0.6), bumps within 1.08 of it), aimed at its centre.
+ORBIT_CENTER = (-0.1, 0.0, -0.6)
+ORBIT_RADIUS = 3.0
+ORBIT_ELEVATION = 15.0
+ORBIT_FRAMES = 4
+# tests/test_grad_camera_reference.py's scene (an infinite plane filling
+# the frame, camera pitched 50 degrees, point light at x = 0.8) and its FD
+# limits. Copied: that file imports the JAX package.
+FD_SCENE = """[options]
+width=200
+height=150
+background_color=1,0,1
+image_name=fdcam
+enableOutput=0
+outputProgress=0
+position=0,0,0
+rotation=50,0,0
+
+[light]
+type=point
+position=0.8,1,-3
+color=1,0.95,0.9
+intensity=0.05
+
+[object]
+type=plane
+pos=0,-2,0
+normal=0,1,0
+color=0.7,0.75,0.8
+
+[end]
+"""
+FD_EPS = {"px": 0.05, "pz": 0.05, "rx": 1.0}
+FD_RTOL = 0.08
 
 
 def flags(ci, name) -> dict:
@@ -1036,11 +1104,11 @@ def sass_counts(path: str) -> dict:
 
 
 @functools.cache
-def tool(name: str):
-    """tools/<name>.py as a module (loaded once)."""
+def tool(name: str, folder: str = "tools"):
+    """<folder>/<name>.py (tools/ or examples/) as a module."""
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "tools", f"{name}.py"))
+                           folder, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1900,6 +1968,383 @@ def show_ac_phase(ci, obj, card_line):
     return out, row
 
 
+def device_ps_under(logdir: str, op: str) -> float:
+    """Device time (ps) of the kernels launched inside the host spans
+    whose name contains `op` in the newest trace under `logdir` (e.g.
+    "IndexBackward0": the autograd engine's span of that node's backward):
+    the runtime launch calls on the span's thread within it, matched to
+    their kernels by correlation id."""
+    from rendering_tpu_torch.utils.profiling import find_traces
+
+    with open(find_traces(logdir)[-1]) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    spans = [(e["pid"], e["tid"], e["ts"], e["ts"] + e["dur"])
+             for e in events if e.get("cat") == "cpu_op" and op in e["name"]]
+    launched = set()
+    for e in events:
+        if e.get("cat") not in ("cuda_runtime", "cuda_driver"):
+            continue
+        for pid, tid, t0, t1 in spans:
+            if (e["pid"], e["tid"]) == (pid, tid) and t0 <= e["ts"] <= t1:
+                launched.add(e.get("args", {}).get("correlation"))
+                break
+    return sum(float(e["dur"]) * 1e6 for e in events
+               if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in launched)
+
+
+def texture_paint_phase(ci, card_line) -> dict:
+    """Phase 28: examples/texture_paint_demo_torch.py's step on the
+    flagship at 3840x1080 (the diffuse map from flat grey against the
+    true map's render, Adam, the map clamped after each step): K1 and K2
+    once per ray block and nothing else; the map gradient finite, the
+    covered texels (nonzero gradient) counted; two steps from the same
+    state bit-equal; the loss falls over PAINT_LOSS_STEPS steps; the step
+    time, rays/s and peak memory; one step traced (`utils.profiling`):
+    the top kernels by `op_profile` and the share of the step's device
+    time that the texel gradient (the backward of the mapsT gather,
+    IndexBackward0) takes. Then at 384x216 one step with the kernels and
+    one with their plain versions: the map gradients bit-equal."""
+    import shutil
+
+    from rendering_tpu_torch.flagship import build_flagship_scene
+    from rendering_tpu_torch.render.pipeline import render_scene
+    from rendering_tpu_torch.utils.profiling import op_profile, trace
+
+    demo = tool("texture_paint_demo_torch", "examples")
+    n_blocks = -(-WIDTH * HEIGHT // RAY_BLOCK)
+
+    def stepper(scene):
+        with torch.no_grad():
+            target = render_scene(scene)[0]
+        init_fn, step_fn = demo.make_paint_step(PAINT_LR)
+
+        def fresh():
+            params = demo.flat_grey(scene)
+            return params, init_fn(params)
+
+        def one_step():
+            params, state = fresh()
+            params, state, loss = step_fn(params, state, scene, target)
+            torch.cuda.synchronize()
+            p = params[demo.KEY]
+            return loss, p.detach().clone(), p.grad.clone()
+
+        return target, step_fn, fresh, one_step
+
+    scene = build_flagship_scene(WIDTH, HEIGHT, n_tris=N_TRIS)
+    target, step_fn, fresh, one_step = stepper(scene)
+    counts: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    with counted(ci, counts):
+        first = one_step()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(counts, {"closest_hit": n_blocks, "any_hit": n_blocks},
+                   "texture-paint step")
+    grad = first[2]
+    if not bool(torch.isfinite(grad).all()):
+        raise AssertionError("texture paint: the map gradient is not finite")
+    covered = demo.covered_texels(grad)
+    n_cov = int(covered.sum())
+    if n_cov == 0:
+        raise AssertionError("texture paint: no texel has a gradient")
+    equal = all(torch.equal(a, b) for a, b in zip(first, one_step()))
+    print(f"texture-paint step: loss {float(first[0]):.8f}; covered texels "
+          f"{n_cov}/{covered.numel()}; sum |grad| "
+          f"{float(grad.abs().sum()):.6e}; two steps from the same state "
+          f"bit-equal: {equal}; peak {peak / 2**30:.3f} GiB")
+    if not equal:
+        raise AssertionError("texture paint: repeat steps differ")
+
+    params, state = fresh()
+    losses = []
+    for _ in range(PAINT_LOSS_STEPS):
+        params, state, loss = step_fn(params, state, scene, target)
+        losses.append(float(loss))
+    print(f"texture-paint losses over {PAINT_LOSS_STEPS} steps: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("texture paint: the loss does not fall")
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        params, state, _ = step_fn(params, state, scene, target)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+
+    tdir = os.path.join(WORKSPACE, "trace_paint")
+    shutil.rmtree(tdir, ignore_errors=True)
+    with trace(tdir):
+        step_fn(params, state, scene, target)
+    rows = op_profile(tdir, top=1 << 30)
+    device_ps = sum(t for _, t in rows)
+    texel_ps = device_ps_under(tdir, "IndexBackward0")
+    share = texel_ps / device_ps
+    print(f"texture-paint step {WIDTH}x{HEIGHT}: {step_ms:.3f} ms (host "
+          f"clock, mean of {reps}), {WIDTH * HEIGHT / step_ms * 1e3:.4e} "
+          f"rays/s; traced step: device {device_ps / 1e9:.3f} ms, texel "
+          f"gradient (IndexBackward0) {texel_ps / 1e9:.3f} ms = "
+          f"{100 * share:.2f}% on {card_line}")
+    for name, ps in rows[:5]:
+        print(f"  op_profile {ps / 1e9:10.3f} ms  {name[:110]}")
+    del scene, target, params, state
+
+    small = build_flagship_scene(*PARITY_WH, n_tris=N_TRIS)
+    _, _, _, small_step = stepper(small)
+    out_k = small_step()
+    with plain_queries(ci):
+        out_p = small_step()
+    same_grad = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    print(f"texture-paint step {PARITY_WH[0]}x{PARITY_WH[1]}: kernels vs "
+          f"plain versions, loss, map and gradient bit-equal: {same_grad}")
+    if not same_grad:
+        raise AssertionError("texture paint: kernel and plain gradients "
+                             "differ")
+    return {"launches": {k: n for k, n in counts.items() if n},
+            "covered_texels": n_cov, "texels": covered.numel(),
+            "losses": losses, "step_ms": step_ms,
+            "rays_per_s": WIDTH * HEIGHT / step_ms * 1e3,
+            "peak_bytes": peak, "repeat_bit_equal": equal,
+            "device_ms": device_ps / 1e9, "texel_grad_ms": texel_ps / 1e9,
+            "texel_grad_share": share,
+            "op_profile_top": [(n, ps / 1e9) for n, ps in rows[:10]],
+            "parity_bit_equal": same_grad}
+
+
+def camera_pose_phase(ci, card_line) -> dict:
+    """Phase 29: examples/inverse_demo_torch.py's pose step on the
+    flagship at 3840x1080: params {"pos", "angles_deg"} through
+    `euler_matrix_j`, the clipped Adam on its cosine schedule, from the
+    demo's perturbed start against the true pose's render: K1 and K2 once
+    per ray block and nothing else, finite nonzero gradients, two steps
+    from the same state bit-equal, the step time. Then central
+    differences on the card against autograd on the infinite-plane scene
+    at 200x150: mean(clamp(frame, 0, 1)) by the port's own f32 render,
+    eps 0.05 for px and pz, 1 degree for rx, rtol FD_RTOL."""
+    from rendering_tpu_torch.flagship import build_flagship_scene
+    from rendering_tpu_torch.models.scene import load_scene
+    from rendering_tpu_torch.models.settings import RenderSettings
+    from rendering_tpu_torch.ops.geometry import euler_matrix_j
+    from rendering_tpu_torch.render.pipeline import render_scene
+
+    demo = tool("inverse_demo_torch", "examples")
+    n_blocks = -(-WIDTH * HEIGHT // RAY_BLOCK)
+    scene = build_flagship_scene(WIDTH, HEIGHT, n_tris=N_TRIS)
+    with torch.no_grad():
+        target = render_scene(scene)[0]
+
+    def fresh():
+        params = demo.start_pose(scene, (0.0, 0.0, 0.0))
+        init_fn, step_fn = demo.make_pose_step(params, POSE_LR, POSE_STEPS)
+        return params, init_fn(params), step_fn
+
+    def one_step():
+        params, state, step_fn = fresh()
+        params, state, loss = step_fn(params, state, scene, target)
+        torch.cuda.synchronize()
+        return [loss] + [t for v in params.values()
+                         for t in (v.detach().clone(), v.grad.clone())]
+
+    counts: dict = {}
+    with counted(ci, counts):
+        first = one_step()
+    check_launches(counts, {"closest_hit": n_blocks, "any_hit": n_blocks},
+                   "camera-pose step")
+    grads = {k: first[2 + 2 * i] for i, k in enumerate(("pos", "angles_deg"))}
+    for k, g in grads.items():
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            raise AssertionError(f"camera pose: gradient of {k} is {g}")
+    equal = all(torch.equal(a, b) for a, b in zip(first, one_step()))
+    print(f"camera-pose step: loss {float(first[0]):.8e}; grads "
+          f"{ {k: g.tolist() for k, g in grads.items()} }; two steps from "
+          f"the same state bit-equal: {equal}")
+    if not equal:
+        raise AssertionError("camera pose: repeat steps differ")
+    params, state, step_fn = fresh()
+    step_fn(params, state, scene, target)  # warm-up
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        params, state, loss = step_fn(params, state, scene, target)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"camera-pose step {WIDTH}x{HEIGHT}: {step_ms:.3f} ms (host "
+          f"clock, mean of {reps} after 1 warm-up) on {card_line}")
+    del scene, target, params, state
+
+    path = os.path.join(WORKSPACE, "fdcam.scene")
+    with open(path, "w") as fh:
+        fh.write(FD_SCENE)
+    plane = load_scene(path, RenderSettings(enable_ssaa=False))
+    base_pos = plane.cam_pos.detach().clone()
+    base_ang = torch.tensor([50.0, 0.0, 0.0], device=plane.device)
+
+    def mean(pos, ang):
+        frame = render_scene(dataclasses.replace(
+            plane, cam_pos=pos, cam_rmat=euler_matrix_j(ang)))[0]
+        magenta = (frame[0] > 0.99) & (frame[1] < 0.01) & (frame[2] > 0.99)
+        if bool(magenta[:-1, :-1].any()):
+            raise AssertionError("FD probe: the background entered the frame")
+        return torch.mean(torch.clamp(frame, 0.0, 1.0))
+
+    pos = base_pos.clone().requires_grad_(True)
+    ang = base_ang.clone().requires_grad_(True)
+    mean(pos, ang).backward()
+    auto = {"px": float(pos.grad[0]), "pz": float(pos.grad[2]),
+            "rx": float(ang.grad[0])}
+    fd = {}
+    with torch.no_grad():
+        for key, (vec, idx) in (("px", ("pos", 0)), ("pz", ("pos", 2)),
+                                ("rx", ("ang", 0))):
+            eps = FD_EPS[key]
+            probes = []
+            for sign in (1.0, -1.0):
+                p, a = base_pos.clone(), base_ang.clone()
+                (p if vec == "pos" else a)[idx] += sign * eps
+                probes.append(float(mean(p, a)))
+            fd[key] = (probes[0] - probes[1]) / (2 * eps)
+    rel = {k: abs(auto[k] - fd[k]) / abs(fd[k]) for k in fd}
+    print(f"camera FD on the card, infinite plane {200}x{150}: autograd "
+          f"{auto}, central differences {fd}, relative error {rel} (limit "
+          f"{FD_RTOL})")
+    if any(r > FD_RTOL for r in rel.values()) or min(
+            abs(v) for v in fd.values()) < 1e-4:
+        raise AssertionError("camera gradients disagree with central "
+                             "differences")
+    return {"launches": {k: n for k, n in counts.items() if n},
+            "step_ms": step_ms, "rays_per_s": WIDTH * HEIGHT / step_ms * 1e3,
+            "repeat_bit_equal": equal,
+            "grads": {k: g.tolist() for k, g in grads.items()},
+            "fd": {"autograd": auto, "central": fd, "rel_err": rel}}
+
+
+def turntable_phase(ci, card_line) -> dict:
+    """Phase 30: ORBIT_FRAMES `orbit_cameras` around the flagship mesh at
+    3840x1080 (SSAA off, the flagship's setting): K1 and K2 once per ray
+    block of each frame; every `render_frames` frame bit-equal to a
+    separate `render` of its camera; `render_frames_pipelined` (depth 2)
+    frames equal to `render_frames`' in f32, and in u8 to the f32 frames
+    quantized on the host (`quantize_reference`, which the device's u8
+    codes equal). Per-frame host time of the sequential and the pipelined
+    generator, the pull included, in turns (sequential, pipelined,
+    pipelined, sequential); then the same for the first two cameras with
+    SSAA on, where the SSAA pass reads its mask size on the host while
+    the next frame is queued."""
+    import numpy as np
+
+    from rendering_tpu_torch.flagship import build_flagship_scene
+    from rendering_tpu_torch.render.animation import (
+        orbit_cameras,
+        render_frames,
+        render_frames_pipelined,
+        set_camera,
+    )
+    from rendering_tpu_torch.render.pipeline import render
+    from rendering_tpu_torch.utils.bmp import quantize_reference
+
+    n_blocks = -(-WIDTH * HEIGHT // RAY_BLOCK)
+    cams = orbit_cameras(ORBIT_CENTER, ORBIT_RADIUS, ORBIT_FRAMES,
+                         elevation_deg=ORBIT_ELEVATION)
+    scene = build_flagship_scene(WIDTH, HEIGHT, n_tris=N_TRIS)
+
+    def same(xs, ys):
+        return all(np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                                  np.ascontiguousarray(b).view(np.uint8))
+                   for a, b in zip(xs, ys))
+
+    def in_turns(sc, cameras, extra=()):
+        """Frames and ms a frame of each run: sequential, pipelined,
+        the `extra` (key, generator) runs, pipelined, sequential."""
+        runs = (("seq", lambda: render_frames(sc, cameras)),
+                ("pip", lambda: render_frames_pipelined(sc, cameras)),
+                *extra,
+                ("pip", lambda: render_frames_pipelined(sc, cameras)),
+                ("seq", lambda: render_frames(sc, cameras)))
+        frames, times = {}, {}
+        for key, gen in runs:
+            s, frames[key] = host_s(lambda: [f for f, _ in gen()])
+            times.setdefault(key, []).append(s / len(cameras) * 1e3)
+        return frames, times
+
+    counts: dict = {}
+    with counted(ci, counts):
+        seq = [f for f, _ in render_frames(scene, cams)]
+    check_launches(counts, {"closest_hit": ORBIT_FRAMES * n_blocks,
+                            "any_hit": ORBIT_FRAMES * n_blocks},
+                   f"turntable render_frames ({ORBIT_FRAMES} frames)")
+    lit = [float((f[:-1, :-1] != f[0, 0]).any(axis=2).mean()) for f in seq]
+    single = [render(set_camera(scene, p, rot_deg=r))[0] for p, r in cams]
+    frames, times = in_turns(scene, cams, extra=(
+        ("pip_u8", lambda: render_frames_pipelined(scene, cams,
+                                                   out_u8=True)),))
+    same_single = same(seq, single)
+    same_pip = same(seq, frames["seq"]) and same(seq, frames["pip"])
+    same_u8 = same([quantize_reference(f) for f in seq], frames["pip_u8"])
+    print(f"turntable {ORBIT_FRAMES} frames {WIDTH}x{HEIGHT}: lit fraction "
+          f"{lit}; render_frames bit-equal to single renders: {same_single}; "
+          f"pipelined equal to sequential, f32 {same_pip}, u8 {same_u8}; ms a "
+          f"frame by the host clock, pull included, in turns {times} on "
+          f"{card_line}")
+    if not (same_single and same_pip and same_u8) or min(lit) < 0.05:
+        raise AssertionError("turntable: frames differ or miss the mesh")
+
+    ssaa = with_settings(scene, enable_ssaa=True)
+    render(set_camera(ssaa, *cams[0]))  # warm-up: the SSAA pass's first run
+    frames_ssaa, times_ssaa = in_turns(ssaa, cams[:2])
+    same_ssaa = same(frames_ssaa["seq"], frames_ssaa["pip"])
+    print(f"turntable with SSAA, 2 frames: pipelined equal to sequential "
+          f"{same_ssaa}; ms a frame in turns {times_ssaa} on {card_line}")
+    if not same_ssaa:
+        raise AssertionError("turntable with SSAA: pipelined frames differ")
+    return {"launches": {k: n for k, n in counts.items() if n},
+            "frames": ORBIT_FRAMES, "lit_fraction": lit,
+            "frame_ms": times, "frame_ms_ssaa": times_ssaa,
+            "single_bit_equal": same_single,
+            "pipelined_equal": {"f32": same_pip, "u8": same_u8,
+                                "ssaa": same_ssaa}}
+
+
+def trace_phase(ci, scene_path, card_line) -> dict:
+    """Phase 31: `cli.main([scene, "--trace-dir", d])` on t10's workload
+    (phase 10's scene file, the 250k OBJ): the BMP written, one trace
+    written under d, and `op_profile(d)`'s rows include the intersection
+    kernels (the root-filter variants of the closest and any-hit walks);
+    prints the top five rows."""
+    import shutil
+
+    from rendering_tpu_torch import cli
+    from rendering_tpu_torch.utils.profiling import find_traces, op_profile
+
+    tdir = os.path.join(WORKSPACE, "trace_cli")
+    shutil.rmtree(tdir, ignore_errors=True)
+    bmp = os.path.join(WORKSPACE, "traced.bmp")
+    counts: dict = {}
+    t0 = time.perf_counter()
+    with counted(ci, counts):
+        cli.main([scene_path, "--output", bmp, "--trace-dir", tdir])
+    total_s = time.perf_counter() - t0
+    traces = find_traces(tdir)
+    every = op_profile(tdir, top=1 << 30)
+    rows = every[:5]
+    walks = sorted({n for n, _ in every if "walk_kernel" in n})
+    print(f"cli.main --trace-dir: {total_s:.3f} s; {len(traces)} trace(s), "
+          f"{[os.path.getsize(t) for t in traces]} bytes; launches "
+          f"{ {k: n for k, n in counts.items() if n} }; intersection "
+          f"kernels in the trace: {walks} on {card_line}")
+    for name, ps in rows:
+        print(f"  op_profile {ps / 1e9:10.3f} ms  {name[:110]}")
+    if (len(traces) != 1 or not os.path.exists(bmp) or not any(
+            "closest_walk_kernel" in n for n in walks) or not any(
+            "anyhit_walk_kernel" in n for n in walks)):
+        raise AssertionError("--trace-dir: no trace, no BMP, or no "
+                             "intersection kernel in the trace")
+    return {"launches": {k: n for k, n in counts.items() if n},
+            "total_s": total_s, "trace_bytes": os.path.getsize(traces[0]),
+            "top5": [(n, ps / 1e9) for n, ps in rows], "walks": walks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2418,6 +2863,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("27 showAC cli")
 
+    # ---- 28-31. the inverse-rendering extras ----------------------------------
+    paint = texture_paint_phase(ci, card_line)
+    torch.cuda.empty_cache()
+    lap("28 texture paint")
+    pose = camera_pose_phase(ci, card_line)
+    torch.cuda.empty_cache()
+    lap("29 camera pose")
+    turntable = turntable_phase(ci, card_line)
+    torch.cuda.empty_cache()
+    lap("30 turntable")
+    traced = trace_phase(ci, scene_paths[False], card_line)
+    lap("31 --trace-dir")
+
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
         k: mmt["launches"][k] for k in ("fused_closest_hit", "fused_any_hit")},
@@ -2441,6 +2899,12 @@ def main() -> int:
             fused=ci.KERNELS[name].fused and not ci.KERNELS[name].anyhit,
             root_filter=ci.KERNELS[name].root_filter,
             collect_stats=ci.KERNELS[name].collect_stats, tile_walk=True)
+        if name in ("closest_hit", "any_hit"):
+            # The inverse-rendering extras' paths launch K1 and K2 too.
+            row["launches_by_path"] = {
+                "texture_paint_step": paint["launches"][name],
+                "camera_pose_step": pose["launches"][name],
+                "turntable": turntable["launches"][name]}
         row["tile_walk_ms"] = n["tile_walk_ms"]
         row["tile_walk"] = {"name": old, "ms": n["tile_walk_ms"],
                             "launches": launches.get(old, 0)}
@@ -2471,6 +2935,8 @@ def main() -> int:
                      "t01": {"measures": t01, "dropped": t01_dropped}},
         "progress": progress, "resumable": resumable,
         "show_normals": normals, "show_ac": show_ac,
+        "texture_paint": paint, "camera_pose": pose, "turntable": turntable,
+        "trace": traced,
         "intersect_sass": walk_sass,
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
                    "k9_ab": kprobe["ab"], "k9_sass": kprobe["sass"],

@@ -9,7 +9,11 @@ names follow the JAX package so each counterpart is easy to find:
   accel.bvh           Morton triangle order
   ops                 (3, R) row-tensor math; cuda_intersect holds the
                       hand-written CUDA closest-hit / any-hit kernels
-  render              ray generation, integrator, render pipeline
+  render              ray generation, integrator, render pipeline,
+                      animation (camera paths, multi-frame serving)
+  diff                inverse-rendering train step, checkpoints
+  utils               BMP, timers, statistics, nvcc builds, profiling
+  cli                 `python -m rendering_tpu_torch scene.scene`
   convert             JAX scene leaves (as numpy) -> port SceneData
 
 Entry points run on the CUDA device unless the caller passes

@@ -15,20 +15,23 @@ outputProgress=1, the scene-file default, the frame renders in strips
 with progress prints (`render_with_progress`), as the JAX package's
 single-device path does; otherwise, and under showAC, in one pass
 (`render`). showNormals and showAC render their debug images.
---geo-shard (multi-device) and --trace-dir (profiling) raise
-NotImplementedError: not ported yet. --no-shard is accepted and changes
-nothing on one device.
+--trace-dir DIR captures a `torch.profiler` trace of the render phase
+into DIR (`utils.profiling.trace`; read it with `op_profile`).
+--geo-shard (multi-device) raises NotImplementedError: not ported yet.
+--no-shard is accepted and changes nothing on one device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 from rendering_tpu_torch.device import resolve_device
 from rendering_tpu_torch.models.scene import load_scene
 from rendering_tpu_torch.render.pipeline import render, render_with_progress
 from rendering_tpu_torch.utils.bmp import save_bmp
+from rendering_tpu_torch.utils.profiling import trace
 from rendering_tpu_torch.utils.stats import RenderStats
 from rendering_tpu_torch.utils.timer import Timer
 
@@ -39,20 +42,16 @@ def main(argv=None, *, device=None) -> int:
     p.add_argument("--output", default=None, help="override output path")
     p.add_argument("--trace-dir", default=None,
                    help="capture a profiler trace of the render phase "
-                        "(not ported yet)")
+                        "into DIR")
     p.add_argument("--no-shard", action="store_true",
                    help="render on one device (the only mode of the port)")
     p.add_argument("--geo-shard", type=int, default=0, metavar="G",
                    help="shard the geometry over G devices (not ported yet)")
     args = p.parse_args(argv)
-    for flag, what, slice_ in (
-        (args.geo_shard, "--geo-shard", "multi-device"),
-        (args.trace_dir, "--trace-dir", "profiling"),
-    ):
-        if flag:
-            raise NotImplementedError(
-                f"{what} is not ported yet; it comes with the {slice_} "
-                f"slice of the port")
+    if args.geo_shard:
+        raise NotImplementedError(
+            "--geo-shard is not ported yet; it comes with the multi-device "
+            "slice of the port")
     device = resolve_device(device)
 
     total = Timer("Total time", device=device)
@@ -64,10 +63,12 @@ def main(argv=None, *, device=None) -> int:
     t_load.stop()
 
     t_render = Timer("Render scene", settings.enable_output, device=device)
-    if settings.output_progress and not settings.show_ac:
-        frame, aux = render_with_progress(scene, out_u8=True)
-    else:
-        frame, aux = render(scene, out_u8=True)
+    with (trace(args.trace_dir, device=device) if args.trace_dir
+          else contextlib.nullcontext()):
+        if settings.output_progress and not settings.show_ac:
+            frame, aux = render_with_progress(scene, out_u8=True)
+        else:
+            frame, aux = render(scene, out_u8=True)
     t_render.stop()
 
     if settings.collect_statistics:

@@ -78,3 +78,34 @@ def morton_key_r(p3):
         return x
 
     return spread(q[0]) | (spread(q[1]) << 1) | (spread(q[2]) << 2)
+
+
+def euler_matrix_j(rot_deg):
+    """Differentiable twin of `models.objloader.euler_matrix` (JAX
+    `ops.geometry.euler_matrix_j`): the 3x3 rotation from Euler degrees
+    (3,) in the reference's row-vector convention (apply as v @ R; mz*my*mx
+    composition, scene.cpp:22-49), built in the autograd graph so that a
+    gradient reaches the angles (camera pose recovery). The numpy original
+    stays the parity path at scene build.
+
+    The angles scale by pi/180 in f32, as in JAX. The matrices are stacked
+    from their entries (torch.tensor would cut the graph), and the two
+    products are written out entry by entry as left-to-right sums plus an
+    exact +0.0, as `objloader._mat3_mul` rounds them: no BLAS or TF32
+    path, so the products round alike on the CPU and the card."""
+    rot = torch.as_tensor(rot_deg, dtype=torch.float32)
+    r = rot * torch.tensor(torch.pi / 180.0, dtype=torch.float32,
+                           device=rot.device)
+    c, s = torch.cos(r), torch.sin(r)
+    one, zero = torch.ones_like(r[0]), torch.zeros_like(r[0])
+    mx = ((one, zero, zero), (zero, c[0], -s[0]), (zero, s[0], c[0]))
+    my = ((c[1], zero, s[1]), (zero, one, zero), (-s[1], zero, c[1]))
+    mz = ((c[2], -s[2], zero), (s[2], c[2], zero), (zero, zero, one))
+
+    def mul(a, b):
+        return tuple(tuple(((a[i][0] * b[0][j] + a[i][1] * b[1][j])
+                            + a[i][2] * b[2][j]) + 0.0 for j in range(3))
+                     for i in range(3))
+
+    m = mul(mul(mz, my), mx)
+    return torch.stack([torch.stack(row) for row in m])

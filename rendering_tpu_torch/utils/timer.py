@@ -6,6 +6,8 @@ clock, so the phase's queued kernels are inside its time. It prints
 `<name> <ms> ms` when `enable_output` is set (the reference's
 `options::enableOutput`).
 
+`phase_timer` is the context-manager form, recording into a dict.
+
 `mean_ms` times a function over repeats: CUDA events on a card, the host
 clock on the CPU. Every time the port's tools and `chip_smoke.py` report
 comes from it.
@@ -13,6 +15,7 @@ comes from it.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -38,6 +41,23 @@ class Timer:
         if self.enable_output:
             print(f"{self.name:<18}{self.elapsed_ms:.0f} ms")
         return self.elapsed_ms
+
+
+@contextlib.contextmanager
+def phase_timer(name: str, enable_output: bool = True,
+                result: dict | None = None, device=None):
+    """Time the block with a `Timer` (JAX `utils.timer.phase_timer`): on a
+    CUDA `device` the timer synchronizes it before reading the clock, as
+    the JAX timer blocks on its box["sync"] outputs, so work the block
+    queued is inside the time. Records the milliseconds in result[name]
+    when a dict is given, also when the block raises. Yields the timer."""
+    t = Timer(name, enable_output, device=device)
+    try:
+        yield t
+    finally:
+        ms = t.stop()
+        if result is not None:
+            result[name] = ms
 
 
 # ~2 ms of spinning at an H100's 1.98 GHz SM clock.

@@ -40,6 +40,7 @@ from rendering_tpu_torch.models.scene import load_scene
 from rendering_tpu_torch.ops.sobel import sobel_mask
 from rendering_tpu_torch.render.pipeline import render_scene
 from rendering_tpu_torch.utils.bmp import bmp_to_image, load_bmp
+from rendering_tpu_torch.utils.profiling import find_traces, op_profile
 from test_golden import (
     DEFAULT_TOL,
     REPO,
@@ -224,8 +225,10 @@ def _progress_scene(ws, name, **options):
 def test_cli_unported_options_raise(obj_workspace):
     """outputProgress=1 (the scene-file default) renders through the strip
     renderer: the BMP is within DEFAULT_TOL of JAX's render_with_progress
-    u8 frame, each package from its own rays. --geo-shard and
-    --trace-dir raise NotImplementedError naming what is missing."""
+    u8 frame, each package from its own rays. With --trace-dir the CLI
+    also writes a profiler trace there, whose op_profile has rows, and a
+    BMP within DEFAULT_TOL of JAX's frame too. --geo-shard raises
+    NotImplementedError naming what is missing."""
     path = _progress_scene(obj_workspace, "prog.scene")
     js = j_load_scene(path, JSettings(pallas_interpret=True))
     assert js.static.settings.output_progress
@@ -237,8 +240,12 @@ def test_cli_unported_options_raise(obj_workspace):
     assert gt1 <= DEFAULT_TOL[0] and gt8 <= DEFAULT_TOL[1]
     with pytest.raises(NotImplementedError, match="geo-shard"):
         cli.main([path, "--geo-shard", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="trace-dir"):
-        cli.main([path, "--trace-dir", "tr"], device="cpu")
+    assert cli.main([path, "--trace-dir", "tr", "--output", "traced.bmp"],
+                    device="cpu") == 0
+    assert len(find_traces("tr")) == 1 and op_profile("tr")
+    traced = bmp_to_image(load_bmp("traced.bmp"))
+    gt1, gt8 = golden_fractions(traced, np.asarray(j_u8))
+    assert gt1 <= DEFAULT_TOL[0] and gt8 <= DEFAULT_TOL[1]
 
 
 @pytest.mark.parametrize("option", ["showNormals", "showAC"])

@@ -45,14 +45,16 @@ def _key(path):
     return "/".join(map(str, path))
 
 
-def _grads(js, paths, eager=False):
+def _grads(js, paths, eager=False, rays=shared_primary_rays):
     """({key: jax.grad}, {key: port grad}) of sum(frame * w), as numpy.
     eager: jax.grad op by op (jax.disable_jit), without the FMA
-    contraction of a jitted program."""
+    contraction of a jitted program. rays: the context that gives both
+    packages the same primary rays (torch_port_util's
+    straight_through_primary_rays where the camera is a parameter)."""
     ts = port_scene(js)
     st = js.static.settings
     w = loss_weights((3, st.height, st.width))
-    with shared_primary_rays(js):
+    with rays(js):
         def loss(p):
             s = j_inverse.apply_params(js, p, paths)
             return jnp.sum(j_pipeline.render_scene.__wrapped__(s)[0] * w)

@@ -335,7 +335,11 @@ def test_port_imports_neither_jax_nor_reference_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
              if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, d, f) for d in ("examples", "tools")
+              for f in sorted(os.listdir(os.path.join(REPO, d)))
+              if f.endswith("_torch.py")]
     assert len(files) > 15
+    assert os.path.join(REPO, "examples", "inverse_demo_torch.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -344,7 +348,9 @@ def test_port_imports_neither_jax_nor_reference_package():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, rendering_tpu_torch.render.pipeline, "
-            "rendering_tpu_torch.flagship, rendering_tpu_torch.convert; "
+            "rendering_tpu_torch.flagship, rendering_tpu_torch.convert, "
+            "rendering_tpu_torch.render.animation, "
+            "rendering_tpu_torch.utils.profiling, rendering_tpu_torch.cli; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.split('.')[0] == 'rendering_tpu' "
             "for m in sys.modules)")

@@ -3,7 +3,9 @@ carrying a JAX scene across as numpy, the two-mesh scene of
 tests/test_fused.py for both packages, the JAX tiny scene and settings
 or material changes of a JAX scene, renders of both packages from the
 same primary rays (and strip renders from the same strip rays), the
-gradient loss weights, and the golden u8 measures."""
+gradient loss weights, the golden u8 measures, and primary rays whose
+values are shared while each package's gradient flows through its own
+(straight_through_primary_rays)."""
 
 from __future__ import annotations
 
@@ -211,6 +213,43 @@ def shared_primary_rays(jax_scene, offset: float = 1.0):
         yield
     finally:
         j_pipeline.primary_rays, t_pipeline.primary_rays = saved
+
+
+@contextlib.contextmanager
+def straight_through_primary_rays(jax_scene):
+    """Within the block, both packages' render pipelines compute their own
+    primary rays in their graphs and swap in the values of JAX's, computed
+    once outside any jit: r + stop_gradient(r_shared - r) in JAX, r +
+    (r_shared - r).detach() in the port. The frames then see the same rays
+    (see shared_primary_rays for why they must), and the gradient reaches
+    cam_pos and cam_rmat through each package's own ray generation, which
+    shared_primary_rays' constant rays cut. The rays lie within an ulp of
+    each other, so r + (r_shared - r) is r_shared exactly."""
+    ro, rd, pix = (np.array(x) for x in j_primary_rays(jax_scene,
+                                                         offset=1.0))
+    j_real, t_real = j_pipeline.primary_rays, t_pipeline.primary_rays
+
+    def j_rays(scene, offset=1.0):
+        assert offset == 1.0
+        r_o, r_d, _ = j_real(scene, offset=offset)
+        sg = jax.lax.stop_gradient
+        return (r_o + sg(jax.numpy.asarray(ro) - r_o),
+                r_d + sg(jax.numpy.asarray(rd) - r_d),
+                jax.numpy.asarray(pix))
+
+    def t_rays(scene, offset=1.0):
+        assert offset == 1.0
+        r_o, r_d, _ = t_real(scene, offset=offset)
+        dev = scene.device
+        return (r_o + (torch.from_numpy(ro).to(dev) - r_o).detach(),
+                r_d + (torch.from_numpy(rd).to(dev) - r_d).detach(),
+                torch.from_numpy(pix).to(dev))
+
+    j_pipeline.primary_rays, t_pipeline.primary_rays = j_rays, t_rays
+    try:
+        yield
+    finally:
+        j_pipeline.primary_rays, t_pipeline.primary_rays = j_real, t_real
 
 
 @contextlib.contextmanager
