@@ -4,8 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from rendering_tpu_torch/csrc with nvcc
-(one nvcc per source, started together), then drives the port's paths
-through the entry points a user calls.
+(one nvcc per source) and its C++ host runtime (csrc/rt_native.cpp: OBJ
+load, SAH BVH) with g++, all started together, then drives the port's
+paths through the entry points a user calls. It fails at the start if
+RTPU_NATIVE=0 is set, and in every `cli.main` phase that loads an OBJ
+(10, 12, 13, 24, 26, 27, 31) unless each OBJ load and BVH build went
+through the C++ runtime.
 
 The 250k-triangle flagship scene at 3840x1080 (kernels K1 closest hit
 and K2 any hit):
@@ -52,7 +56,11 @@ variants of K1/K2/K5):
     3840x1080, the root-filter variants of K1 and K2 launch once per ray
     block of the primary and the SSAA pass and the unfiltered ones never;
     prints the OBJ load, BVH, build and render times, the SSAA mask and
-    capacity and the hit fraction; keeps the middle block's queries;
+    capacity and the hit fraction; keeps the middle block's queries; then
+    runs the scene file through `cli.main` in turns, C++ runtime, Python
+    (RTPU_NATIVE=0), Python, C++ runtime, printing each turn's OBJ load,
+    BVH, scene build, render and cli.main seconds: the four BMPs
+    byte-equal, the two paths' MeshArrays and FlatBVH arrays bit-equal;
 11. holds the root-filter kernels against their plain versions on 64
     sampled tiles and on the whole queries, times them and computes
     their bound;
@@ -205,6 +213,25 @@ with the committed maps) at 3840x1080, through the port's demos
     trace written, `op_profile` rows that include the closest and
     any-hit walk kernels; the top five rows printed.
 
+The scene builders' asset branches, on stand-in OBJ files written under
+build/chip_smoke/reference (the reference assets are not in the
+repository; every line that prints a time taken on them names them
+stand-ins):
+
+32. `build_flagship_scene(3840, 1080, n_tris=250_000,
+    real_geometry=True)` over a stand-in shotgun.obj (the procedural mesh
+    of 1,539 triangles, the bundled asset's count): C++ load,
+    `densify_mesh`, C++ BVH (the densify time and triangle count
+    printed); K1 and K2 once per ray block, each held against its plain
+    version on 64 tiles and the whole middle block; the frame timed; the
+    train step (two steps bit-equal); the frame bit-equal to that of the
+    scene built through RTPU_NATIVE=0;
+33. `build_multimesh_scene(1920, 1080)` with tris_per_mesh=None over a
+    stand-in bunny.obj (5,000 procedural triangles): 16 C++ loads and
+    BVH builds; K5 closest and any hit (their root-filter variants where
+    a mesh is clipped) once per ray block, each held against its plain
+    version on the middle block; the frame and a train step timed.
+
 Every query a phase holds to its plain version (phases 3, 7, 11, 12, 13,
 14, 16, 23) is also timed against the tile walk its kernel replaced, in
 turns (tile, new, new, tile; `ms` is the new walk's, `tile_walk_ms` the
@@ -254,6 +281,8 @@ N_TRIS = 250_000
 WIDTH, HEIGHT = 3840, 1080
 MM_WIDTH, MM_HEIGHT = 1920, 1080
 MM_MESHES, MM_TRIS_PER_MESH = 16, 5000
+# The bundled shotgun.obj's triangle count (bench.py): the stand-in's.
+SHOTGUN_TRIS = 1539
 PARITY_WH = (384, 216)
 SAMPLED_TILES = 64
 RAY_BLOCK = 1 << 17     # integrator.DEFAULT_RAY_BLOCK
@@ -539,6 +568,30 @@ def check_parity(ci, name, tables, prep, bfc) -> float:
     return float((out_k[0] - out_p[0]).abs().max())
 
 
+def query_bound(ci, tables, prep, kw, stats, out_k) -> dict:
+    """The least time the card could take for a prepared query: the
+    larger of its bytes (the tables, the prepared rays and visit tables
+    read once, the outputs written once) at HBM_RATE and its f32
+    operations (the pairs this query's data needs, OPS_PER_PAIR each,
+    plus SLAB_OPS per accepted pair with the root filter; `stats` from
+    the plain version) at F32_OPS_RATE."""
+    fused = isinstance(tables, ci.FusedTables)
+    geo = tables.geo if fused else tables
+    table_tensors = [geo.tri, geo.cbox] + ([tables.idmap] if fused else [])
+    n_in = sum(x.numel() * x.element_size()
+               for x in (*table_tensors, prep.aux, prep.torder,
+                         prep.counts))
+    n_out = sum(x.numel() * x.element_size() for x in out_k)
+    bytes_ms = (n_in + n_out) / HBM_RATE * 1e3
+    ops = stats["pairs"] * OPS_PER_PAIR
+    if kw["root_filter"]:
+        ops += stats["accepts"] * SLAB_OPS
+    ops_ms = ops / F32_OPS_RATE * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "ops": ops, "bytes_ms": bytes_ms}
+
+
 def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
     """Times of the kernel, its plain version and the pre-pass on a
     prepared query of the main path, and the kernel's bound from this
@@ -582,29 +635,14 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
         raise AssertionError(f"{name} disagrees with its plain "
                              f"version at the main path's shape")
     n, aux = prep.n_rays, prep.aux
-    fused = isinstance(tables, ci.FusedTables)
-    geo = tables.geo if fused else tables
+    geo = tables.geo if isinstance(tables, ci.FusedTables) else tables
     prepass_ms = mean_ms(
         lambda: ci.prepare(geo, aux[0:3, :n], aux[3:6, :n], aux[9, :n]),
         reps=5)
-    table_tensors = [geo.tri, geo.cbox] + ([tables.idmap] if fused else [])
-    n_in = sum(x.numel() * x.element_size()
-               for x in (*table_tensors, prep.aux, prep.torder,
-                         prep.counts))
-    n_out = sum(x.numel() * x.element_size() for x in out_k)
-    bytes_ms = (n_in + n_out) / HBM_RATE * 1e3
-    ops = stats["pairs"] * OPS_PER_PAIR
-    if kw["root_filter"]:
-        ops += stats["accepts"] * SLAB_OPS
-    ops_ms = ops / F32_OPS_RATE * 1e3
-    out = {
-        "rays": prep.n_rays, "pairs": stats["pairs"],
-        "accepts": stats["accepts"], "ms": ms,
-        "plain_ms": plain_ms, "prepass_ms": prepass_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-        "ops": ops, "bytes_ms": bytes_ms,
-    }
+    out = {"rays": prep.n_rays, "pairs": stats["pairs"],
+           "accepts": stats["accepts"], "ms": ms, "plain_ms": plain_ms,
+           "prepass_ms": prepass_ms,
+           **query_bound(ci, tables, prep, kw, stats, out_k)}
     out.update({k: stats[k] for k in ("union_pairs", "warp_pairs",
                                       "packed_pairs", "tile_union_max")})
     out["live_supers_mean"] = float(prep.counts.double().mean())
@@ -790,6 +828,79 @@ def recorded(module, attr: str, calls: list):
         setattr(module, attr, real)
 
 
+@contextlib.contextmanager
+def native_env(flag: str):
+    """RTPU_NATIVE=flag within the block ("0": the Python loader and
+    builder), as it was after."""
+    saved = os.environ.get("RTPU_NATIVE")
+    os.environ["RTPU_NATIVE"] = flag
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["RTPU_NATIVE"]
+        else:
+            os.environ["RTPU_NATIVE"] = saved
+
+
+@contextlib.contextmanager
+def native_path(what: str, native_on: bool = True):
+    """Records, within the block, the calls of the port's C++ loader and
+    builder (`native.load_obj_native`, `native.build_bvh_native`) and of
+    the Python ones (`recorded`), and yields a dict that holds, after the
+    block, the OBJ loads and BVH builds and their host seconds. Fails
+    unless every OBJ load and every BVH build went through the C++ runtime
+    and none through Python (native_on), or, with native_on False, every
+    one through Python. Each mesh of these scenes comes from an OBJ, so
+    the builds must equal the loads in number."""
+    from rendering_tpu_torch import native
+    from rendering_tpu_torch.accel import bvh
+    from rendering_tpu_torch.models import objloader
+
+    calls = {k: [] for k in ("obj", "bvh", "obj_python", "bvh_python")}
+    out: dict = {}
+    with contextlib.ExitStack() as stack:
+        for key, module, attr in (
+                ("obj", native, "load_obj_native"),
+                ("bvh", native, "build_bvh_native"),
+                ("obj_python", objloader, "load_obj_python"),
+                ("bvh_python", bvh, "build_bvh_python")):
+            stack.enter_context(recorded(module, attr, calls[key]))
+        yield out
+    ran = {k: [c["result"] is not None for c in v] for k, v in calls.items()}
+    n = len(ran["obj"])
+    want = [native_on] * n
+    ok = (n > 0 and ran["obj"] == want and ran["bvh"] == want
+          and ran["obj_python"] == ran["bvh_python"] == [True] * (
+              0 if native_on else n))
+    out.update(loads=n, native=native_on,
+               obj_s=[c["s"] for c in calls["obj" if native_on
+                                             else "obj_python"]],
+               bvh_s=[c["s"] for c in calls["bvh" if native_on
+                                             else "bvh_python"]])
+    print(f"{what}: {n} OBJ loads and {len(ran['bvh'])} BVH builds, "
+          f"{'C++ runtime' if native_on else 'Python (RTPU_NATIVE=0)'}: "
+          f"{ok} (native results {ran['obj']}, {ran['bvh']}; Python calls "
+          f"{len(ran['obj_python'])}, {len(ran['bvh_python'])})")
+    if not ok:
+        raise AssertionError(f"{what}: an OBJ load or BVH build did not go "
+                             f"through the {'C++' if native_on else 'Python'}"
+                             f" path")
+
+
+@contextlib.contextmanager
+def reference_dir(path: str):
+    """flagship.REFERENCE_DIR set to `path` within the block."""
+    from rendering_tpu_torch import flagship
+
+    saved = flagship.REFERENCE_DIR
+    flagship.REFERENCE_DIR = path
+    try:
+        yield
+    finally:
+        flagship.REFERENCE_DIR = saved
+
+
 class Laps:
     """Prints the duration of each phase as it ends (host clock,
     synchronized)."""
@@ -949,9 +1060,11 @@ def cli_path(ci, scene_path, what, kept: dict, block: int) -> dict:
     `cli.main`, with every kernel's launch count set to 0 just before it
     and read just after. Records the OBJ load, BVH, scene build and render
     times, the SSAA mask size and capacity of each render attempt, and
-    the frame's hit fraction from the BMP; requires each ray block of the
-    primary and SSAA passes to launch the path's closest- and any-hit
-    kernels once. Keeps the queries of ray block `block` in `kept`
+    the frame's hit fraction from the BMP; requires each OBJ load and BVH
+    build to go through the C++ runtime (`native_path`) and each ray
+    block of the primary and SSAA passes to launch the path's closest-
+    and any-hit kernels once. Keeps the queries of ray block `block` in
+    `kept`
     (keep_block)."""
     import numpy as np
 
@@ -978,6 +1091,7 @@ def cli_path(ci, scene_path, what, kept: dict, block: int) -> dict:
                                   ("ssaa", pipeline, "_ssaa_pass")):
             stack.enter_context(recorded(module, attr, rec[key]))
         stack.enter_context(keep_block(ci, block, kept))
+        nat = stack.enter_context(native_path(f"{what} cli.main"))
         stack.enter_context(counted(ci, counts))
         t0 = time.perf_counter()
         cli.main([scene_path, "--output", bmp])
@@ -1016,6 +1130,7 @@ def cli_path(ci, scene_path, what, kept: dict, block: int) -> dict:
         "build_s": rec["build"][0]["s"],
         "renders": attempts, "hit_fraction": hit_frac,
         "launches": {k: n for k, n in counts.items() if n},
+        "native": nat,
         "scene": scene, "scene_def": rec["build"][0]["args"][0],
     }
     print(f"{what}: {w}x{h}, {out['triangles']} triangles (clipped "
@@ -1575,8 +1690,10 @@ def run_cli(ci, scene_path, bmp, records=(), logs=()):
     `cli.main`, with every kernel's launch count set to 0 just before it
     and read just after, its standard output captured (and printed), the
     calls of each (key, module, attr) in `records` recorded (`recorded`:
-    synchronized) and in `logs` logged (`logged`: their kwargs). Returns
-    {"counts", "rec", "out", "total_s", "scene", "scene_def", "image"}."""
+    synchronized) and in `logs` logged (`logged`: their kwargs), and each
+    OBJ load and BVH build required to go through the C++ runtime
+    (`native_path`). Returns {"counts", "rec", "out", "total_s",
+    "native", "scene", "scene_def", "image"}."""
     from rendering_tpu_torch import cli
     from rendering_tpu_torch.models import scene as scene_mod
     from rendering_tpu_torch.utils.bmp import bmp_to_image, load_bmp
@@ -1590,6 +1707,7 @@ def run_cli(ci, scene_path, bmp, records=(), logs=()):
             stack.enter_context(recorded(module, attr, rec[key]))
         for key, module, attr in logs:
             stack.enter_context(logged(module, attr, rec[key]))
+        nat = stack.enter_context(native_path(f"{scene_path} cli.main"))
         stack.enter_context(counted(ci, counts))
         stack.enter_context(contextlib.redirect_stdout(buf))
         t0 = time.perf_counter()
@@ -1597,7 +1715,8 @@ def run_cli(ci, scene_path, bmp, records=(), logs=()):
         total_s = time.perf_counter() - t0
     print(buf.getvalue(), end="")
     return {"counts": counts, "rec": rec, "out": buf.getvalue(),
-            "total_s": total_s, "scene": rec["build"][0]["result"],
+            "total_s": total_s, "native": nat,
+            "scene": rec["build"][0]["result"],
             "scene_def": rec["build"][0]["args"][0],
             "image": bmp_to_image(load_bmp(bmp))}
 
@@ -2322,7 +2441,7 @@ def trace_phase(ci, scene_path, card_line) -> dict:
     bmp = os.path.join(WORKSPACE, "traced.bmp")
     counts: dict = {}
     t0 = time.perf_counter()
-    with counted(ci, counts):
+    with native_path("cli.main --trace-dir"), counted(ci, counts):
         cli.main([scene_path, "--output", bmp, "--trace-dir", tdir])
     total_s = time.perf_counter() - t0
     traces = find_traces(tdir)
@@ -2345,6 +2464,271 @@ def trace_phase(ci, scene_path, card_line) -> dict:
             "top5": [(n, ps / 1e9) for n, ps in rows], "walks": walks}
 
 
+def native_turns(ci, scene_path, card_line) -> dict:
+    """Phase 10's turns: t10's workload (`scene_path`) through `cli.main`
+    with the C++ runtime, then the Python loader and builder
+    (RTPU_NATIVE=0) twice, then the C++ runtime again (native_path checks
+    each). Prints each turn's OBJ load, BVH, scene build, render and
+    cli.main seconds (host clock, synchronized). Fails unless the four
+    BMPs are byte-equal and the C++ and Python paths' MeshArrays and
+    FlatBVH arrays are bit-equal on this host."""
+    import numpy as np
+
+    from rendering_tpu_torch import cli
+    from rendering_tpu_torch.models import parser
+    from rendering_tpu_torch.models import scene as scene_mod
+    from rendering_tpu_torch.render import pipeline
+
+    turns, bmps, arrays = [], [], {}
+    for k, on in enumerate((True, False, False, True)):
+        rec = {key: [] for key in ("obj", "bvh", "build", "render")}
+        counts: dict = {}
+        bmp = os.path.join(WORKSPACE, f"turn{k}.bmp")
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(native_env("1" if on else "0"))
+            for key, module, attr in (("obj", parser, "load_obj"),
+                                      ("bvh", scene_mod, "build_bvh"),
+                                      ("build", scene_mod, "build_scene"),
+                                      ("render", pipeline, "render_scene")):
+                stack.enter_context(recorded(module, attr, rec[key]))
+            nat = stack.enter_context(native_path(
+                f"turn {k} cli.main", native_on=on))
+            stack.enter_context(counted(ci, counts))
+            t0 = time.perf_counter()
+            cli.main([scene_path, "--output", bmp])
+            total_s = time.perf_counter() - t0
+        with open(bmp, "rb") as fh:
+            bmps.append(fh.read())
+        if on not in arrays:
+            arrays[on] = (rec["obj"][0]["result"], rec["bvh"][0]["result"])
+        turn = {"native": on, "obj_load_s": rec["obj"][0]["s"],
+                "bvh_s": rec["bvh"][0]["s"], "build_s": rec["build"][0]["s"],
+                "render_s": sum(c["s"] for c in rec["render"]),
+                "cli_s": total_s,
+                "launches": {key: n for key, n in counts.items() if n}}
+        turns.append(turn)
+        print(f"scene file turn {k} ({'C++ runtime' if on else 'Python'}): "
+              f"OBJ load {turn['obj_load_s']:.3f} s, BVH "
+              f"{turn['bvh_s']:.3f} s, scene build {turn['build_s']:.3f} s, "
+              f"render {turn['render_s']:.3f} s, cli.main "
+              f"{total_s:.3f} s on {card_line}")
+        del rec, nat
+
+    def bits(x):
+        x = np.ascontiguousarray(x)
+        return x.dtype, x.shape, x.view(np.uint8).tobytes()
+
+    mesh_equal = all(bits(getattr(arrays[True][0], f)) == bits(
+        getattr(arrays[False][0], f)) for f in ("v", "n", "uv", "tangent",
+                                                  "bitangent", "root_bounds"))
+    bvh_equal = all(
+        (bits(a) == bits(b)) if isinstance(a, np.ndarray) else a == b
+        for a, b in ((getattr(arrays[True][1], f.name),
+                      getattr(arrays[False][1], f.name))
+                     for f in dataclasses.fields(arrays[True][1])))
+    bmp_equal = all(b == bmps[0] for b in bmps)
+    mean = {on: sum(t["cli_s"] for t in turns if t["native"] == on) / 2
+            for on in (True, False)}
+    print(f"scene file turns: BMPs byte-equal {bmp_equal}; MeshArrays "
+          f"bit-equal {mesh_equal}; FlatBVH bit-equal {bvh_equal}; "
+          f"cli.main C++ {mean[True]:.3f} s, Python {mean[False]:.3f} s "
+          f"(means of 2) on {card_line}")
+    if not (bmp_equal and mesh_equal and bvh_equal):
+        raise AssertionError("the C++ and Python host paths disagree")
+    return {"turns": turns, "bmp_bytes": len(bmps[0])}
+
+
+def block_parity(ci, name, tables, prep, bfc, what: str) -> dict:
+    """`check_parity` on 64 sampled tiles, then the kernel against its
+    plain version on the whole kept query (ids equal, t bit-equal), and
+    the kernel's time there (mean_ms) beside the plain version's and the
+    query's bound (`query_bound`)."""
+    err = check_parity(ci, name, tables, prep, bfc)
+    kw = flags(ci, name)
+    stats: dict = {}
+    out_k = launch(ci, tables, prep, bfc, **kw)
+    out_p = plain(ci, tables, prep, bfc, stats, **kw)
+    mis = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+              if a.dtype == torch.float32 else int((a != b).sum())
+              for a, b in zip(out_k, out_p))
+    ms = mean_ms(lambda: launch(ci, tables, prep, bfc, **kw), reps=5)
+    plain_ms = mean_ms(lambda: plain(ci, tables, prep, bfc, **kw), reps=1)
+    bound = query_bound(ci, tables, prep, kw, stats, out_k)
+    print(f"parity {name} on the whole block ({what}): {prep.n_rays} rays, "
+          f"mismatches {mis}; kernel {ms:.5f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}, "
+          f"{stats['pairs']} pairs)")
+    if mis:
+        raise AssertionError(f"{name} disagrees with its plain version on "
+                             f"the whole block")
+    return {"max_abs_err": err, "mismatches": mis, "ms": ms,
+            "plain_ms": plain_ms, "rays": prep.n_rays,
+            "pairs": stats["pairs"], **bound}
+
+
+def write_stand_in(name: str, n_tris: int) -> str:
+    """A stand-in reference asset: the procedural mesh of n_tris
+    triangles written as build/chip_smoke/reference/input/objects/<name>
+    (the real asset is not in the repository). Returns the REFERENCE_DIR
+    that holds it."""
+    from rendering_tpu_torch.flagship import procedural_mesh
+    from rendering_tpu_torch.models.objloader import write_obj
+
+    ref = os.path.join(WORKSPACE, "reference")
+    objects = os.path.join(ref, "input", "objects")
+    os.makedirs(objects, exist_ok=True)
+    m = procedural_mesh(n_tris, pos=(0, 0, 0), size=(2, 2, 2))
+    write_obj(os.path.join(objects, name), m.v, m.uv, m.n)
+    return ref
+
+
+def real_geometry_phase(ci, card_line) -> dict:
+    """Phase 32: the flagship on real geometry from an OBJ, as bench.py's
+    headline builds it: a stand-in shotgun.obj (the procedural mesh of
+    SHOTGUN_TRIS triangles, the bundled asset's count) loaded by the C++
+    runtime, `densify_mesh` to N_TRIS, the C++ BVH. K1 and K2 once per ray
+    block, each held against its plain version on the middle block; the
+    frame timed (CUDA events); the train step (repeat steps bit-equal);
+    the frame bit-equal to that of the scene built through RTPU_NATIVE=0."""
+    from rendering_tpu_torch import flagship
+    from rendering_tpu_torch.render.pipeline import render_scene
+
+    ref = write_stand_in("shotgun.obj", SHOTGUN_TRIS)
+    densify: list = []
+    build = functools.partial(flagship.build_flagship_scene, WIDTH, HEIGHT,
+                              n_tris=N_TRIS, real_geometry=True)
+    with reference_dir(ref), recorded(flagship, "densify_mesh", densify):
+        with native_path("real-geometry flagship build") as nat:
+            t0 = time.perf_counter()
+            scene = build()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        with native_env("0"), native_path("real-geometry flagship build, "
+                                          "RTPU_NATIVE=0", native_on=False):
+            py_scene = build()
+    ms0 = scene.static.meshes[0]
+    print(f"real-geometry flagship (stand-in shotgun.obj, "
+          f"{densify[0]['args'][0].n_tris} procedural triangles): densified "
+          f"to {ms0.n_tris} triangles in {densify[0]['s']:.3f} s; OBJ load "
+          f"{nat['obj_s'][0]:.3f} s, BVH {nat['bvh_s'][0]:.3f} s, scene build "
+          f"{build_s:.3f} s; clipped {ms0.clipped_by_root}")
+    if len(densify) != 2 or not N_TRIS * 0.9 < ms0.n_tris < N_TRIS * 1.1:
+        raise AssertionError("real geometry: the mesh was not densified")
+    n_blocks = -(-WIDTH * HEIGHT // RAY_BLOCK)
+    sfx = "_rootfilter" if ms0.clipped_by_root else ""
+    names = (f"closest_hit{sfx}", f"any_hit{sfx}")
+    kept: dict = {}
+    counts: dict = {}
+    with torch.no_grad(), keep_block(ci, n_blocks // 2, kept), \
+            counted(ci, counts):
+        frame3, _ = render_scene(scene)
+    check_launches(counts, {n: n_blocks for n in names},
+                   f"real-geometry render_scene ({n_blocks} ray blocks)")
+    check_frame(scene, frame3, WIDTH, HEIGHT, "real-geometry flagship")
+    bfc = scene.static.settings.use_backface_culling
+    parity = {n: block_parity(ci, n, *kept[ci.KERNELS[n].anyhit], bfc,
+                              "stand-in shotgun.obj, densified")
+              for n in names}
+    kept.clear()
+
+    def forward():
+        with torch.no_grad():
+            render_scene(scene)
+
+    frame_ms = mean_ms(forward, reps=3)
+    with torch.no_grad():
+        py_frame, _ = render_scene(py_scene)
+    py_equal = torch.equal(frame3.view(torch.int32),
+                           py_frame.view(torch.int32))
+    print(f"real-geometry frame (stand-in shotgun.obj, densified) "
+          f"{WIDTH}x{HEIGHT}, {ms0.n_tris} triangles: "
+          f"{frame_ms:.3f} ms (CUDA events, mean of 3 after 1 warm-up); "
+          f"bit-equal to the RTPU_NATIVE=0 scene's frame: {py_equal} on "
+          f"{card_line}")
+    if not py_equal:
+        raise AssertionError("real geometry: the C++ and Python builds "
+                             "render different frames")
+    del py_scene, py_frame, frame3
+    # As on the procedural flagship (phase 5), only the vertices get a
+    # gradient.
+    step = train(ci, scene, BENCH_PATHS, reps=2,
+                 zero_ok=("lights/0/intensity", "obj_color"))
+    check_launches(step["launches"], {n: n_blocks for n in names},
+                   "real-geometry train step")
+    print(f"real-geometry fwd+bwd step (stand-in shotgun.obj, densified) "
+          f"{WIDTH}x{HEIGHT}: "
+          f"{step['step_ms']:.3f} ms, {step['rays_per_s']:.4e} rays/s; peak "
+          f"{step['peak_bytes'] / 2**30:.3f} GiB on {card_line}")
+    del scene
+    return {"stand_in_tris": densify[0]["args"][0].n_tris,
+            "triangles": ms0.n_tris, "clipped": ms0.clipped_by_root,
+            "densify_s": densify[0]["s"], "build_s": build_s,
+            "native": nat, "frame_ms": frame_ms, "parity": parity,
+            "launches": {k: n for k, n in counts.items() if n},
+            "fwd_bwd": step}
+
+
+def bunny_grid_phase(ci, card_line) -> dict:
+    """Phase 33: the 16-mesh scene from OBJ files, `build_multimesh_scene(
+    MM_WIDTH, MM_HEIGHT)` with tris_per_mesh=None over a stand-in
+    bunny.obj (the procedural mesh of MM_TRIS_PER_MESH triangles): every
+    cell's load and BVH through the C++ runtime; K5 closest and any hit
+    once per ray block, each held against its plain version on the middle
+    block; the frame and one train step timed."""
+    from rendering_tpu_torch import flagship
+    from rendering_tpu_torch.render.pipeline import render_scene
+
+    ref = write_stand_in("bunny.obj", MM_TRIS_PER_MESH)
+    with reference_dir(ref), native_path("16-mesh OBJ scene build") as nat:
+        t0 = time.perf_counter()
+        mm = flagship.build_multimesh_scene(MM_WIDTH, MM_HEIGHT,
+                                            n_meshes=MM_MESHES)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    tris = [m.n_tris for m in mm.static.meshes]
+    clipped = [m.clipped_by_root for m in mm.static.meshes]
+    print(f"16-mesh scene from the stand-in bunny.obj: {tris} triangles, "
+          f"clipped {clipped}; {nat['loads']} OBJ loads "
+          f"{sum(nat['obj_s']):.3f} s, BVH {sum(nat['bvh_s']):.3f} s, scene "
+          f"build {build_s:.3f} s")
+    if tris != [MM_TRIS_PER_MESH] * MM_MESHES or nat["loads"] != MM_MESHES:
+        raise AssertionError("the 16-mesh scene did not take the OBJ branch")
+    sfx = "_rootfilter" if any(clipped) else ""
+    names = (f"fused_closest_hit{sfx}", f"fused_any_hit{sfx}")
+    mm_blocks = -(-MM_WIDTH * MM_HEIGHT // RAY_BLOCK)
+    kept: dict = {}
+    counts: dict = {}
+    with torch.no_grad(), keep_block(ci, mm_blocks // 2, kept), \
+            counted(ci, counts):
+        frame3, _ = render_scene(mm)
+    check_launches(counts, {n: mm_blocks for n in names},
+                   f"16-mesh OBJ render_scene ({mm_blocks} ray blocks)")
+    check_frame(mm, frame3, MM_WIDTH, MM_HEIGHT, "16-mesh OBJ scene")
+    bfc = mm.static.settings.use_backface_culling
+    parity = {n: block_parity(ci, n, *kept[ci.KERNELS[n].anyhit], bfc,
+                              "16 stand-in bunny.obj")
+              for n in names}
+    kept.clear()
+    del frame3
+
+    def forward():
+        with torch.no_grad():
+            render_scene(mm)
+
+    frame_ms = mean_ms(forward, reps=2)
+    step = train(ci, mm, MM_PATHS, reps=1)
+    check_launches(step["launches"], {n: mm_blocks for n in names},
+                   "16-mesh OBJ train step")
+    print(f"16-mesh scene (stand-in bunny.obj) {MM_WIDTH}x{MM_HEIGHT}: "
+          f"frame {frame_ms:.3f} ms; fwd+bwd step {step['step_ms']:.3f} ms; "
+          f"peak {step['peak_bytes'] / 2**30:.3f} GiB on {card_line}")
+    del mm
+    return {"triangles": tris, "clipped": clipped, "native": nat,
+            "build_s": build_s, "frame_ms": frame_ms, "parity": parity,
+            "launches": {k: n for k, n in counts.items() if n},
+            "fwd_bwd": step}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2354,11 +2738,16 @@ def main() -> int:
         build_multimesh_scene,
         build_tiny_scene,
     )
+    from rendering_tpu_torch import native
     from rendering_tpu_torch.ops import cuda_intersect as ci
     from rendering_tpu_torch.ops import microbench as mb
     from rendering_tpu_torch.ops import traversal
     from rendering_tpu_torch.render.pipeline import render_scene
     from rendering_tpu_torch.utils import nvcc
+
+    if not native.enabled():
+        raise AssertionError("RTPU_NATIVE=0 is set: the port's C++ host "
+                             "runtime must run here")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2367,11 +2756,15 @@ def main() -> int:
     print(card_line)
     lap = Laps()
 
-    # ---- build: one nvcc per source, all started together -----------------
+    # ---- build: one nvcc per source and g++ for the host runtime, all
+    # started together ------------------------------------------------------
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
         built = list(pool.map(nvcc.build_library,
-                              (ci.SOURCE, mb.SOURCE, traversal.SOURCE)))
+                              (ci.SOURCE, mb.SOURCE, traversal.SOURCE,
+                               native.SOURCE)))
+    if native.get_lib() is None:
+        raise AssertionError("the host runtime did not load")
     for path, log in built:
         print(f"built {path}")
         for line in log.splitlines():
@@ -2552,6 +2945,7 @@ def main() -> int:
     sf_frame_ms = mean_ms(lambda: sf_forward(scene), reps=2)
     print(f"scene-file frame {SCENE_W}x{SCENE_H} (primary + SSAA): "
           f"{sf_frame_ms:.3f} ms on {card_line}")
+    turns = native_turns(ci, scene_paths[False], card_line)
 
     lap("10 scene file")
 
@@ -2876,6 +3270,14 @@ def main() -> int:
     traced = trace_phase(ci, scene_paths[False], card_line)
     lap("31 --trace-dir")
 
+    # ---- 32-33. real geometry and the 16-mesh scene from OBJ files ----------
+    real = real_geometry_phase(ci, card_line)
+    torch.cuda.empty_cache()
+    lap("32 real-geometry flagship")
+    bunny = bunny_grid_phase(ci, card_line)
+    torch.cuda.empty_cache()
+    lap("33 16-mesh scene from OBJ")
+
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
         k: mmt["launches"][k] for k in ("fused_closest_hit", "fused_any_hit")},
@@ -2905,6 +3307,15 @@ def main() -> int:
                 "texture_paint_step": paint["launches"][name],
                 "camera_pose_step": pose["launches"][name],
                 "turntable": turntable["launches"][name]}
+        for path, run in (("real_geometry_frame", real["launches"]),
+                          ("real_geometry_step", real["fwd_bwd"]["launches"]),
+                          ("bunny_grid_frame", bunny["launches"]),
+                          ("bunny_grid_step", bunny["fwd_bwd"]["launches"])):
+            if run.get(name):
+                row.setdefault("launches_by_path", {})[path] = run[name]
+        if any(t["launches"].get(name) for t in turns["turns"]):
+            row.setdefault("launches_by_path", {})["scene_file_turns"] = [
+                t["launches"].get(name, 0) for t in turns["turns"]]
         row["tile_walk_ms"] = n["tile_walk_ms"]
         row["tile_walk"] = {"name": old, "ms": n["tile_walk_ms"],
                             "launches": launches.get(old, 0)}
@@ -2923,7 +3334,9 @@ def main() -> int:
                        "stats_frame_ms": sfs_frame_ms,
                        "cli": path_numbers(sf), "cli_stats": path_numbers(sfs),
                        "two_obj": two_nums[False],
-                       "two_obj_stats": two_nums[True]},
+                       "two_obj_stats": two_nums[True],
+                       "native_turns": turns},
+        "real_geometry": real, "bunny_grid": bunny,
         "bouncing": {"frame_ms": b_frame_ms, "stats": b_stats,
                      "peak_bytes": b_peak, "bounces": bounces,
                      "fwd_bwd": b_train, "k6": k6, "k2_same_query": k2_same,

@@ -6,8 +6,11 @@ Starting from a flat grey texture, Adam on pixel MSE against one rendered
 target repaints every camera-visible texel of the flagship's diffuse map,
 the gradient flowing through the differentiable hit re-evaluation and
 the packed-map gather (render.pipeline.derive_mesh_tables). The scene is
-the flagship: the procedural 250k-triangle mesh with the committed maps
-(tests/assets/maps), SSAA off. Runs on the CUDA device unless
+the flagship with the committed maps (tests/assets/maps), SSAA off, on
+real geometry where REFERENCE_DIR holds the reference assets: shotgun.obj
+subdivided and displaced to --tris triangles (flagship.densify_mesh, as
+the JAX demo does); elsewhere the procedural mesh of --tris triangles.
+It prints which geometry it ran on. Runs on the CUDA device unless
 `--device cpu` is given.
 
 Writes to --out:
@@ -36,7 +39,10 @@ from rendering_tpu_torch.diff.inverse import (  # noqa: E402
     apply_params,
     make_train_step,
 )
-from rendering_tpu_torch.flagship import build_flagship_scene  # noqa: E402
+from rendering_tpu_torch.flagship import (  # noqa: E402
+    build_flagship_scene,
+    reference_obj,
+)
 from rendering_tpu_torch.render.pipeline import render_scene  # noqa: E402
 from rendering_tpu_torch.utils.bmp import save_bmp  # noqa: E402
 
@@ -88,15 +94,19 @@ def main(argv=None) -> int:
     ns = ap.parse_args(argv)
 
     device = resolve_device(ns.device)
+    geometry = ("shotgun.obj densified" if reference_obj("shotgun.obj")
+                else "procedural")
     scene = build_flagship_scene(ns.width, ns.height, n_tris=ns.tris,
-                                 enable_ssaa=False, device=device)
+                                 enable_ssaa=False, real_geometry=True,
+                                 device=device)
     ms = scene.static.meshes[0]
     if not ms.has_diffuse_map:
         raise RuntimeError("the flagship has no diffuse map: the committed "
                            "maps under tests/assets/maps are missing")
     w_t, h_t = ms.dmap_wh
-    print(f"scene: {ms.n_tris} tris, {w_t}x{h_t} diffuse map, "
-          f"{ns.width}x{ns.height} render on {device}", flush=True)
+    print(f"scene: {ms.n_tris} tris ({geometry} geometry), {w_t}x{h_t} "
+          f"diffuse map, {ns.width}x{ns.height} render on {device}",
+          flush=True)
 
     true_map = scene.meshes[0].diffuse_map.detach().cpu().numpy()
     with torch.no_grad():
@@ -143,6 +153,7 @@ def main(argv=None) -> int:
              map_img(params[KEY].detach().cpu().numpy()))
     result = {
         "tris": int(ms.n_tris),
+        "geometry": geometry,
         "render": f"{ns.width}x{ns.height}",
         "map": f"{w_t}x{h_t}",
         "covered_texels": int(covered.sum()),

@@ -6,7 +6,8 @@ names follow the JAX package so each counterpart is easy to find:
 
   flagship            benchmark scene builder (host numpy)
   models              settings, scene definitions, scene tensors
-  accel.bvh           Morton triangle order
+  accel.bvh           SAH BVH build, Morton triangle order
+  native              the C++ host runtime (OBJ load, SAH BVH), ctypes
   ops                 (3, R) row-tensor math; cuda_intersect holds the
                       hand-written CUDA closest-hit / any-hit kernels
   render              ray generation, integrator, render pipeline,

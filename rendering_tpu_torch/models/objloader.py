@@ -1,6 +1,7 @@
 """Wavefront OBJ loader with the reference engine's semantics — the port's
-copy of `rendering_tpu.models.objloader` (pure Python; the JAX package's
-native C++ loader is not ported).
+copy of `rendering_tpu.models.objloader`. `load_obj` runs the port's C++
+loader (`rendering_tpu_torch.native`, csrc/rt_native.cpp), bit-equal to
+`load_obj_python`; RTPU_NATIVE=0 takes the Python loader.
 
 Re-implements `Mesh::loadOBJ` (src/objects.cpp:177-394) as a numpy
 struct-of-arrays producer. Quirks kept:
@@ -32,6 +33,8 @@ import dataclasses
 import math
 
 import numpy as np
+
+from rendering_tpu_torch import native
 
 FLT_MAX = np.float32(np.finfo(np.float32).max)
 FLT_MIN = np.float32(np.finfo(np.float32).tiny)
@@ -158,9 +161,25 @@ def _apply_first_face_transform(
 
 
 def load_obj(path: str, size, rot, pos, bias: float = 0.0001) -> MeshArrays:
-    """Load an OBJ file placed by the scene's size/rot/pos (the pure
-    Python loader; a native host loader is later work)."""
-    return load_obj_python(path, size, rot, pos, bias)
+    """Load an OBJ file placed by the scene's size/rot/pos: the C++ loader
+    (built at first use; a failed build raises), or the Python loader
+    under RTPU_NATIVE=0. A parse error in the C++ loader (None) runs the
+    Python loader, which raises its own exception for the file; should
+    the Python loader accept the file instead, the two loaders disagree
+    and that raises."""
+    res = native.load_obj_native(
+        path, np.asarray(size, np.float32), euler_matrix(rot),
+        np.asarray(pos, np.float32), bias,
+    )
+    if res is None:
+        mesh = load_obj_python(path, size, rot, pos, bias)
+        if not native.enabled():
+            return mesh
+        raise RuntimeError(f"{path}: the C++ OBJ loader rejected a file "
+                           f"that the Python loader accepts")
+    v, n, uv, tangent, bitangent, bounds = res
+    return MeshArrays(v=v, n=n, uv=uv, tangent=tangent, bitangent=bitangent,
+                      root_bounds=bounds)
 
 
 def load_obj_python(path: str, size, rot, pos, bias: float = 0.0001) -> MeshArrays:

@@ -1,8 +1,10 @@
-"""Builds a CUDA source of the port (rendering_tpu_torch/csrc) into a
-shared library with a plain C interface, for binding through ctypes.
+"""Builds a source of the port (rendering_tpu_torch/csrc) into a shared
+library with a plain C interface, for binding through ctypes: a CUDA
+source (`.cu`) with nvcc, the host runtime (`.cpp`) with g++.
 
 Nothing is built at import time: a kernel module calls `build_library`
-at its first launch, so the package imports on a host without nvcc.
+at its first launch, and the host runtime at its first use, so the
+package imports on a host without nvcc.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# The host runtime: native/Makefile's flags. No FMA contraction (g++
+# contracts by default where the target has FMA, as aarch64 does), no
+# -ffast-math and no -march: the results stay bit-equal to the Python
+# paths on any host CPU.
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-ffp-contract=off",
+             "-shared")
 
 
 def _nvcc() -> str | None:
@@ -30,28 +38,38 @@ def _nvcc() -> str | None:
     return path if os.path.exists(path) else None
 
 
-def build_library(source: str, flags=NVCC_FLAGS) -> tuple[str, str]:
-    """Compile `source` with nvcc and `flags` into BUILD_DIR, named by the
+def _gxx() -> str | None:
+    """Path of g++ on PATH."""
+    return shutil.which("g++")
+
+
+def build_library(source: str) -> tuple[str, str]:
+    """Compile `source` into BUILD_DIR: a `.cpp` with g++ and CXX_FLAGS,
+    anything else with nvcc and NVCC_FLAGS. The library is named by the
     hash of the source and the flags (an edit rebuilds; a finished build
-    is reused). The library is written under a temporary name and renamed,
-    so concurrent builds of one source never load a half-written file.
-    Returns (library path, compiler output). Raises when nvcc is missing
-    or the build fails."""
+    is reused). It is written under a name of its own process and thread
+    and renamed into place, so concurrent builds of one source never load
+    a half-written file. Returns (library path, compiler output). Raises
+    when the compiler is missing or the build fails, with the compiler's
+    error output."""
+    host = source.endswith(".cpp")
+    name, flags = ("g++", CXX_FLAGS) if host else ("nvcc", NVCC_FLAGS)
     with open(source, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(flags).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     path = os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
     if os.path.exists(path):
         return path, ""
-    nvcc = _nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
-                           "build rendering_tpu_torch's kernels")
+    compiler = _gxx() if host else _nvcc()
+    if compiler is None:
+        need = "a C++ compiler" if host else "the CUDA toolkit"
+        raise RuntimeError(f"{name} not found: {need} is required to build "
+                           f"rendering_tpu_torch's {source}")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run([nvcc, *flags, "-o", tmp, source],
+    proc = subprocess.run([compiler, *flags, "-o", tmp, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {source}:\n{proc.stderr}")
+        raise RuntimeError(f"{name} failed building {source}:\n{proc.stderr}")
     os.replace(tmp, path)
     return path, proc.stdout + proc.stderr

@@ -340,6 +340,7 @@ def test_port_imports_neither_jax_nor_reference_package():
               if f.endswith("_torch.py")]
     assert len(files) > 15
     assert os.path.join(REPO, "examples", "inverse_demo_torch.py") in files
+    assert os.path.join(PKG, "native", "__init__.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -350,7 +351,8 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, rendering_tpu_torch.render.pipeline, "
             "rendering_tpu_torch.flagship, rendering_tpu_torch.convert, "
             "rendering_tpu_torch.render.animation, "
-            "rendering_tpu_torch.utils.profiling, rendering_tpu_torch.cli; "
+            "rendering_tpu_torch.utils.profiling, rendering_tpu_torch.cli, "
+            "rendering_tpu_torch.native; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.split('.')[0] == 'rendering_tpu' "
             "for m in sys.modules)")
