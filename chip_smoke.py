@@ -8,7 +8,7 @@ Builds the port's CUDA kernels from rendering_tpu_torch/csrc with nvcc
 load, SAH BVH) with g++, all started together, then drives the port's
 paths through the entry points a user calls. It fails at the start if
 RTPU_NATIVE=0 is set, and in every `cli.main` phase that loads an OBJ
-(10, 12, 13, 24, 26, 27, 31) unless each OBJ load and BVH build went
+(10, 12, 13, 24, 26, 27, 31, 37) unless each OBJ load and BVH build went
 through the C++ runtime.
 
 The 250k-triangle flagship scene at 3840x1080 (kernels K1 closest hit
@@ -231,6 +231,36 @@ stand-ins):
     BVH builds; K5 closest and any hit (their root-filter variants where
     a mesh is clipped) once per ray block, each held against its plain
     version on the middle block; the frame and a train step timed.
+
+Several ranks (rendering_tpu_torch/parallel on torch.distributed; each
+time printed is labelled with the ranks and cards, "2 ranks on one card"
+when they share it, and is no scaling figure):
+
+34. one rank on NCCL in this process (the port's init picks NCCL for a
+    rank with a card of its own; all_reduce, all_gather and broadcast on
+    the card), then two ranks, each a spawned process (`rank_main`): NCCL
+    with a card each when the machine has two, else gloo over CUDA
+    tensors on cuda:0; each prints its backend and checks the port's
+    all-reduce and all-gather on its card;
+35. the ray-sharded flagship (250k, 3840x1080) through
+    `render_scene_sharded`: K1 and K2 once per ray block of the rank's
+    share on each rank and nothing else, the frame u8-equal to phase 1's
+    (the largest f32 difference printed), timed; the sharded train step
+    (`make_train_step(mesh=)`): its gradients within rtol 1e-4 (atol
+    1e-4 max|g|) of phase 5's, a step from the same state bit-equal, the
+    parameters after two steps equal on the ranks (a SHA-1 of their
+    bytes); `make_sharded_grad_fn` under both schedules (the bucketed
+    all-reduce during backward, one after it) against phase 5's
+    gradients scaled to its loss, and against each other at rtol 1e-6;
+36. the geometry-sharded 16-mesh scene at 1920x1080, layout (1, 2): K5
+    once per ray block on each rank's shard of the fused tables, the
+    frame u8-equal to phase 6's, each rank's per-triangle bytes half the
+    padded tables' (printed beside the replicated scene's), timed;
+37. t10's workload with outputProgress=1 through `cli.main` on the two
+    ranks (sharded strips, the root-filter kernels once per ray block of
+    the rank's share, only rank 0 printing), then with --geo-shard 2
+    (the fused root-filter kernels on each rank's shard): each BMP
+    within test_golden.py's default limits of phase 24's.
 
 Every query a phase holds to its plain version (phases 3, 7, 11, 12, 13,
 14, 16, 23) is also timed against the tile walk its kernel replaced, in
@@ -479,6 +509,14 @@ color=0.7,0.75,0.8
 """
 FD_EPS = {"px": 0.05, "pz": 0.05, "rx": 1.0}
 FD_RTOL = 0.08
+# Several ranks (phases 34-37): two processes, each on its own card when
+# the machine has two, else both on cuda:0 (gloo); their files go here.
+MD_RANKS = 2
+MD_DIR = os.path.join(WORKSPACE, "multidevice")
+MD_TIMEOUT_S = 400
+# Sharded gradients against the single-device step's: rtol, and atol
+# rtol * max|g| (tests/test_torch_parallel.py's limits).
+GRAD_RTOL = 1e-4
 
 
 def flags(ci, name) -> dict:
@@ -743,12 +781,13 @@ def whole_render_parity(ci, build, what):
     return u8_k, counts_k
 
 
-def train(ci, scene, paths, *, reps: int, zero_ok=()):
+def train(ci, scene, paths, *, reps: int, zero_ok=(), kept=None):
     """make_train_step on `scene`: one counted step from fresh parameters
     (launches, peak memory, gradients), a second step from the same state
     that must be bit-equal, then `reps` timed steps (host clock,
     synchronized). Gradients must be finite, and nonzero except for the
-    keys in `zero_ok`, which must be exactly 0."""
+    keys in `zero_ok`, which must be exactly 0. `kept`, a dict, receives
+    the first step's gradients as host arrays."""
     from rendering_tpu_torch.diff.inverse import (
         extract_params,
         make_train_step,
@@ -782,6 +821,8 @@ def train(ci, scene, paths, *, reps: int, zero_ok=()):
             raise AssertionError(f"gradient of {k}: sum |g| = {grads[k]}")
     print(f"step loss {float(loss):.8f}; sum |grad| {grads}; peak "
           f"{peak / 2**30:.3f} GiB")
+    if kept is not None:
+        kept.update({k: g.cpu().numpy() for k, (_, g) in out.items()})
     result = {"launches": counts, "loss": float(loss), "grad_abs_sum": grads,
               "peak_bytes": peak}
     loss2, out2 = one_step(step)
@@ -905,15 +946,16 @@ class Laps:
     """Prints the duration of each phase as it ends (host clock,
     synchronized)."""
 
-    def __init__(self):
+    def __init__(self, prefix: str = ""):
         self.t = time.perf_counter()
         self.laps: dict = {}
+        self.prefix = prefix
 
     def __call__(self, name: str) -> None:
         torch.cuda.synchronize()
         now = time.perf_counter()
         self.laps[name] = now - self.t
-        print(f"phase {name}: {now - self.t:.1f} s", flush=True)
+        print(f"{self.prefix}phase {name}: {now - self.t:.1f} s", flush=True)
         self.t = now
 
 
@@ -2729,6 +2771,430 @@ def bunny_grid_phase(ci, card_line) -> dict:
             "fwd_bwd": step}
 
 
+# ---- 34-37: several ranks ---------------------------------------------------
+
+
+def md_file(name: str) -> str:
+    return os.path.join(MD_DIR, name)
+
+
+def param_digest(params: dict) -> str:
+    """SHA-1 of every parameter's bytes in key order: equal digests on
+    two ranks mean the same bits."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for k in sorted(params):
+        h.update(params[k].detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def grads_close(got: dict, want: dict, rtol: float, scale: float = 1.0):
+    """(ok, the largest |got - want| / (rtol * (|want| + max|want|)) over
+    the parameters): each gradient within rtol of want * scale, atol
+    rtol * max|want * scale| (0 where want is 0)."""
+    import numpy as np
+
+    worst = 0.0
+    for k, w in want.items():
+        w = w * scale
+        g = got[k]
+        tol = rtol * (np.abs(w) + np.abs(w).max())
+        excess = np.abs(g - w) - tol
+        if w.any():
+            worst = max(worst, float((np.abs(g - w) / np.maximum(
+                tol, 1e-30)).max()))
+        elif g.any():
+            return False, float("inf")
+        if (excess > 0).any():
+            return False, worst
+    return True, worst
+
+
+def blocks_of(n_rays: int) -> int:
+    return math.ceil(n_rays / RAY_BLOCK)
+
+
+def sharded_blocks(r: int, world: int, wh=None) -> int:
+    """Ray blocks of one rank's share of r rays over `world` ranks."""
+    from rendering_tpu_torch.parallel.shard import _round_robin_layout
+
+    rp, _ = _round_robin_layout(r, world, wh)
+    return blocks_of(rp // world)
+
+
+def rank_phases(ci, rank: int, world: int, dev, say) -> dict:
+    """Phases 35-37 on one rank: the ray-sharded flagship (frame and
+    train step under both schedules), the geometry-sharded 16-mesh scene,
+    and t10's workload through cli.main (ray-sharded strips, then
+    --geo-shard 2). Every check raises; the numbers are returned."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from rendering_tpu_torch import cli
+    from rendering_tpu_torch.diff.inverse import (
+        extract_params,
+        make_train_step,
+    )
+    from rendering_tpu_torch.flagship import (
+        build_flagship_scene,
+        build_multimesh_scene,
+    )
+    from rendering_tpu_torch.parallel import geoshard, shard
+    from rendering_tpu_torch.parallel.overlap import make_sharded_grad_fn
+    from rendering_tpu_torch.render.pipeline import quantize_u8
+
+    out: dict = {}
+    lap = Laps(prefix=f"rank {rank} ")
+    mesh = shard.make_ray_mesh(device=dev)
+
+    def timed(fn, reps=2):
+        """Host seconds of each of `reps` calls, the ranks lined up by a
+        barrier before each."""
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            t, _ = host_s(fn)
+            times.append(t)
+        return times
+
+    # ---- 35. the ray-sharded flagship: frame ---------------------------
+    scene = build_flagship_scene(WIDTH, HEIGHT, n_tris=N_TRIS, device=dev)
+    blocks = sharded_blocks(WIDTH * HEIGHT, world, (WIDTH, HEIGHT))
+    counts: dict = {}
+    with torch.no_grad(), counted(ci, counts):
+        frame3, _ = shard.render_scene_sharded(scene, mesh)
+    check_launches(counts, {"closest_hit": blocks, "any_hit": blocks},
+                   f"rank {rank}: sharded flagship frame ({blocks} ray "
+                   f"blocks)")
+    u8 = quantize_u8(frame3).cpu().numpy()
+    n_u8 = int((u8 != np.load(md_file("flag_u8.npy"))).sum())
+    f32_diff = float(np.abs(frame3.cpu().numpy()
+                            - np.load(md_file("flag_f32.npy"))).max())
+    with torch.no_grad():
+        frame_s = timed(lambda: shard.render_scene_sharded(scene, mesh))
+    say(f"sharded flagship {WIDTH}x{HEIGHT}: {n_u8} u8 values differ from "
+        f"phase 1's frame, max |f32 diff| {f32_diff:.3e}; frame "
+        f"{[round(t, 4) for t in frame_s]} s")
+    if n_u8:
+        raise AssertionError("the sharded flagship frame differs from "
+                             "phase 1's")
+    out["flagship"] = {"frame_launches": {k: n for k, n in counts.items()
+                                          if n},
+                       "u8_differing": n_u8, "max_abs_f32_diff": f32_diff,
+                       "frame_s": frame_s}
+    del frame3
+    lap("35 sharded flagship frame")
+
+    # ---- 35. the ray-sharded flagship: train step, both schedules -------
+    ref = dict(np.load(md_file("flag_grads.npz")))
+    ref = {k.replace("|", "/"): v for k, v in ref.items()}
+    target = train_target(scene)
+    init, step = make_train_step(BENCH_PATHS, mesh=mesh)
+
+    def first_step():
+        params = extract_params(scene, BENCH_PATHS)
+        state = init(params)
+        params, state, loss = step(params, state, scene, target)
+        torch.cuda.synchronize()
+        return params, state, loss, {k: v.grad.cpu().numpy().copy()
+                                     for k, v in params.items()}
+
+    step_counts: dict = {}
+    with counted(ci, step_counts):
+        params, state, loss, grads = first_step()
+    check_launches(step_counts, {"closest_hit": blocks, "any_hit": blocks},
+                   f"rank {rank}: sharded flagship train step")
+    ok, worst = grads_close(grads, ref, GRAD_RTOL)
+    params2, _, loss2, grads2 = first_step()
+    repeat = (float(loss) == float(loss2) and all(
+        np.array_equal(grads[k], grads2[k]) for k in grads)
+        and param_digest(params) == param_digest(params2))
+    params, state, _ = step(params, state, scene, target)
+    digest = param_digest(params)
+    step_s = timed(lambda: step(params, state, scene, target))
+    say(f"sharded train step: gradients vs phase 5's within rtol "
+        f"{GRAD_RTOL}: {ok} (worst {worst:.3e} of the tolerance); repeat "
+        f"step bit-equal: {repeat}; parameters after two steps {digest}; "
+        f"step {[round(t, 4) for t in step_s]} s")
+    if not ok or not repeat:
+        raise AssertionError("the sharded train step disagrees with phase "
+                             "5 or with itself")
+    # make_sharded_grad_fn's loss leaves the dead row and column out and
+    # averages over (W - 1)(H - 1) pixels: the same gradient scaled.
+    scale = WIDTH * HEIGHT / ((WIDTH - 1) * (HEIGHT - 1))
+    sched = {}
+    for overlap in (True, False):
+        fn = make_sharded_grad_fn(BENCH_PATHS, mesh, overlap=overlap)
+        p = extract_params(scene, BENCH_PATHS)
+        counts = {}
+        with counted(ci, counts):
+            _, g = fn(p, scene, target)
+        check_launches(counts, {"closest_hit": blocks, "any_hit": blocks},
+                       f"rank {rank}: make_sharded_grad_fn overlap={overlap}")
+        g = {k: v.cpu().numpy().copy() for k, v in g.items()}
+        ok, worst = grads_close(g, ref, GRAD_RTOL, scale)
+        times = timed(lambda fn=fn, p=p: fn(p, scene, target))
+        sched[overlap] = {"grads": g, "ok": ok, "worst": worst,
+                          "s": times}
+        say(f"make_sharded_grad_fn overlap={overlap}: gradients vs phase "
+            f"5's (x {scale:.6f}) within rtol {GRAD_RTOL}: {ok} (worst "
+            f"{worst:.3e}); {[round(t, 4) for t in times]} s")
+        if not ok:
+            raise AssertionError(f"make_sharded_grad_fn overlap={overlap} "
+                                 f"disagrees with phase 5")
+    agree, worst = grads_close(sched[True]["grads"], sched[False]["grads"],
+                               1e-6)
+    say(f"the two schedules' gradients within rtol 1e-6: {agree} (worst "
+        f"{worst:.3e})")
+    if not agree:
+        raise AssertionError("the two all-reduce schedules disagree")
+    out["flagship"].update(
+        step_launches={k: n for k, n in step_counts.items() if n},
+        step_repeat_bit_equal=repeat, params_digest=digest, step_s=step_s,
+        grad_fn_s={str(k): v["s"] for k, v in sched.items()},
+        grad_fn_worst={str(k): v["worst"] for k, v in sched.items()})
+    del scene, params, params2, state, target
+    torch.cuda.empty_cache()
+    lap("35 sharded flagship train step")
+
+    # ---- 36. the geometry-sharded 16-mesh scene, layout (1, world) -------
+    gmesh = geoshard.make_geo_mesh(world, device=dev)
+    gscene = build_multimesh_scene(
+        MM_WIDTH, MM_HEIGHT, n_meshes=MM_MESHES,
+        tris_per_mesh=MM_TRIS_PER_MESH,
+        settings_overrides=dict(geo_shard_axis="geo"), device=dev)
+    mm_blocks = blocks_of(MM_WIDTH * MM_HEIGHT)
+    counts = {}
+    with torch.no_grad(), counted(ci, counts):
+        gu8, _ = geoshard.render_geo_sharded(gscene, gmesh, out_u8=True)
+    check_launches(counts, {"fused_closest_hit": mm_blocks,
+                            "fused_any_hit": mm_blocks},
+                   f"rank {rank}: geometry-sharded 16-mesh frame (its shard "
+                   f"of the tables, {mm_blocks} ray blocks)")
+    n_u8 = int((gu8 != np.load(md_file("mm_u8.npy"))).sum())
+    acct = geoshard.geo_shard_memory_accounting(gscene, gmesh)
+    geo_s = timed(lambda: geoshard.render_geo_sharded(gscene, gmesh))
+    say(f"geometry-sharded 16-mesh {MM_WIDTH}x{MM_HEIGHT} (1, {world}): "
+        f"{n_u8} u8 values differ from phase 6's frame; bytes {acct}; "
+        f"frame {[round(t, 4) for t in geo_s]} s")
+    if n_u8:
+        raise AssertionError("the geometry-sharded frame differs from "
+                             "phase 6's")
+    if acct["per_triangle_bytes_rank"] * world != acct["sharded_bytes_total"]:
+        raise AssertionError("a rank holds more than its share of the "
+                             "per-triangle tables")
+    out["geo"] = {"launches": {k: n for k, n in counts.items() if n},
+                  "u8_differing": n_u8, "bytes": acct, "frame_s": geo_s}
+    del gscene
+    torch.cuda.empty_cache()
+    lap("36 geometry-sharded 16-mesh")
+
+    # ---- 37. t10's workload through cli.main: sharded strips, geo ----------
+    scene_path = os.path.join(WORKSPACE, "shotgun_progress.scene")
+    for key, extra, mod in (("cli", (), shard),
+                            ("cli_geo", ("--geo-shard", str(world)),
+                             geoshard)):
+        strips: list = []
+        ssaa: list = []
+        counts = {}
+        bmp = md_file(f"{key}.bmp")
+        buf = io.StringIO()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(logged(mod, "render_strip_sharded", strips))
+            stack.enter_context(logged(mod, "ssaa_pass_sharded", ssaa))
+            stack.enter_context(native_path(f"rank {rank} {key}"))
+            stack.enter_context(counted(ci, counts))
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            t0 = time.perf_counter()
+            rc = cli.main([scene_path, "--output", bmp, *extra])
+            cli_s = time.perf_counter() - t0
+        ray_world = 1 if extra else world
+        n = sum(sharded_blocks(kw["rows"] * SCENE_W, ray_world,
+                               (SCENE_W, kw["rows"])) for kw in strips)
+        n += sum(blocks_of(4 * -(-kw["capacity"] // ray_world)) for kw in ssaa)
+        names = (("fused_closest_hit_rootfilter", "fused_any_hit_rootfilter")
+                 if extra else ("closest_hit_rootfilter",
+                                "any_hit_rootfilter"))
+        check_launches(counts, {names[0]: n, names[1]: n},
+                       f"rank {rank}: cli.main {' '.join(extra)} "
+                       f"outputProgress=1 ({len(strips)} strips)")
+        say(f"cli.main {' '.join(extra) or '(rays sharded)'}: rc {rc}, "
+            f"{len(strips)} strips, {n} ray blocks a kernel, {cli_s:.3f} s; "
+            f"printed {len(buf.getvalue())} characters")
+        if rc or (rank and buf.getvalue()):
+            raise AssertionError("cli.main failed, or a rank other than 0 "
+                                 "printed")
+        out[key] = {"launches": {k: v for k, v in counts.items() if v},
+                    "strips": len(strips), "cli_s": cli_s,
+                    "printed": buf.getvalue() if rank == 0 else ""}
+    lap("37 cli.main on two ranks")
+    return out
+
+
+def rank_main(rank: int, world: int, port: int) -> None:
+    """One rank of phases 35-37, a process of its own (spawned by
+    `multidevice_phase`; the kernels are built already): joins the group
+    (`multihost.initialize_distributed`, which picks and prints the
+    backend), checks the port's collectives on its device, runs
+    `rank_phases`, and writes its numbers, or its traceback, to
+    build/chip_smoke/multidevice/rank<r>.json."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from rendering_tpu_torch.ops import cuda_intersect as ci
+    from rendering_tpu_torch.parallel import collectives, multihost, shard
+
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+
+    def say(msg):
+        print(f"rank {rank}: {msg}", flush=True)
+
+    out = {"rank": rank}
+    try:
+        multihost.initialize_distributed(f"localhost:{port}", world, rank)
+        dev = multihost.rank_device()
+        mesh = shard.make_ray_mesh(device=dev)
+        x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * rank
+        base = torch.arange(4, dtype=torch.float32)
+        got = [collectives.all_reduce(mesh.rays, x).cpu(),
+               collectives.all_gather(mesh.rays, x).cpu()]
+        want = [base * world + 10 * sum(range(world)),
+                torch.cat([base + 10 * r for r in range(world)])]
+        coll_ok = all(torch.equal(a, b) for a, b in zip(got, want))
+        out.update(device=str(dev), backend=dist.get_backend(),
+                   cards=torch.cuda.device_count(), collectives_ok=coll_ok,
+                   topology=multihost.process_topology())
+        say(f"{out['backend']} on {dev}, {world} ranks, "
+            f"{out['cards']} card(s); all_reduce, all_gather: {coll_ok}")
+        if not coll_ok:
+            raise AssertionError(f"collectives: {got} != {want}")
+        out.update(rank_phases(ci, rank, world, dev, say))
+        out["ok"] = True
+    except BaseException:
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(md_file(f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh, default=str)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def nccl_one_rank(card_line) -> dict:
+    """One rank on NCCL in this process, whatever the card count: the
+    port's init picks NCCL for a rank with a card of its own, and the
+    three collectives run on it."""
+    import socket
+
+    import torch.distributed as dist
+
+    from rendering_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    saved = {k: os.environ.pop(k, None) for k in ("LOCAL_RANK",
+                                                  "LOCAL_WORLD_SIZE")}
+    try:
+        multihost.initialize_distributed(f"localhost:{port}", 1, 0,
+                                         device="cuda")
+        backend = dist.get_backend()
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        y = x.clone()
+        dist.all_reduce(y)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        z = x.clone()
+        dist.broadcast(z, src=0)
+        torch.cuda.synchronize()
+        ok = (backend == "nccl" and torch.equal(y, x)
+              and torch.equal(parts[0], x) and torch.equal(z, x))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    print(f"one rank on {backend}: all_reduce, all_gather, broadcast on the "
+          f"card: {ok} on {card_line}")
+    if not ok:
+        raise AssertionError("NCCL with one rank failed")
+    return {"backend": backend, "ok": ok}
+
+
+def multidevice_phase(ci, card_line) -> dict:
+    """Phases 34-37: one rank on NCCL here, then MD_RANKS ranks, each a
+    spawned process running `rank_main` (NCCL with a card each when there
+    are as many cards, else gloo on cuda:0, ranks sharing the card),
+    within MD_TIMEOUT_S; the ranks' checks, then across them: the same
+    parameter digest after two sharded steps, and each cli.main BMP within
+    test_golden.py's default limits of phase 24's."""
+    import socket
+
+    from rendering_tpu_torch.utils.bmp import bmp_to_image, load_bmp
+
+    nccl = nccl_one_rank(card_line)
+    world = MD_RANKS
+    cards = torch.cuda.device_count()
+    label = (f"{world} ranks on {cards} cards" if cards >= world
+             else f"{world} ranks on one card")
+    for r in range(world):
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(md_file(f"rank{r}.json"))
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(r, world, port))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = t0 + MD_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    ranks_s = time.perf_counter() - t0
+    res = []
+    for r, p in enumerate(procs):
+        try:
+            with open(md_file(f"rank{r}.json")) as fh:
+                res.append(json.load(fh))
+        except FileNotFoundError:
+            res.append({"rank": r})
+        if p.exitcode != 0 or not res[-1].get("ok"):
+            raise AssertionError(f"rank {r} exited {p.exitcode}: "
+                                 f"{res[-1].get('error', 'no result')}")
+    digests = {r["flagship"]["params_digest"] for r in res}
+    if len(digests) != 1:
+        raise AssertionError(f"the ranks' parameters differ: {digests}")
+    gold = bmp_to_image(load_bmp(os.path.join(
+        WORKSPACE, "shotgun_progress.bmp")))
+    measures = {}
+    for key in ("cli", "cli_geo"):
+        measures[key] = golden_measures(
+            bmp_to_image(load_bmp(md_file(f"{key}.bmp"))), gold)
+        if any(m > t for m, t in zip(measures[key], DEFAULT_GOLDEN_TOL)):
+            raise AssertionError(f"{key} BMP outside phase 24's limits: "
+                                 f"{measures[key]}")
+    print(f"multi-device ({label}, backend {res[0]['backend']}): the ranks' "
+          f"parameters after two steps equal ({digests.pop()}); cli.main "
+          f"BMPs vs phase 24's: {measures} (limits {DEFAULT_GOLDEN_TOL}); "
+          f"the ranks ran {ranks_s:.1f} s on {card_line}")
+    return {"label": label, "backend": res[0]["backend"],
+            "cards": cards, "ranks": world,
+            "nccl_one_rank": nccl, "ranks_s": ranks_s,
+            "bmp_measures": measures,
+            "per_rank": [{k: r[k] for k in ("flagship", "geo", "cli",
+                                             "cli_geo")} for r in res]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2742,6 +3208,9 @@ def main() -> int:
     from rendering_tpu_torch.ops import cuda_intersect as ci
     from rendering_tpu_torch.ops import microbench as mb
     from rendering_tpu_torch.ops import traversal
+    import numpy as np
+
+    from rendering_tpu_torch.render import pipeline as render_pipeline
     from rendering_tpu_torch.render.pipeline import render_scene
     from rendering_tpu_torch.utils import nvcc
 
@@ -2799,6 +3268,12 @@ def main() -> int:
     check_launches(fwd_counts, {"closest_hit": n_blocks, "any_hit": n_blocks},
                    f"flagship render_scene ({n_blocks} ray blocks)")
     check_frame(scene, frame3, WIDTH, HEIGHT, "flagship")
+    # Phases 35-36's references: this frame, phase 5's gradients, phase
+    # 6's frame.
+    os.makedirs(MD_DIR, exist_ok=True)
+    np.save(md_file("flag_f32.npy"), frame3.cpu().numpy())
+    np.save(md_file("flag_u8.npy"), render_pipeline.quantize_u8(frame3)
+            .cpu().numpy())
 
     def forward():
         with torch.no_grad():
@@ -2830,8 +3305,13 @@ def main() -> int:
     lap("4 flagship parity")
 
     # ---- 5. flagship fwd+bwd train step --------------------------------------
+    flag_grads: dict = {}
     flag = train(ci, scene, BENCH_PATHS, reps=3,
-                 zero_ok=("lights/0/intensity", "obj_color"))
+                 zero_ok=("lights/0/intensity", "obj_color"),
+                 kept=flag_grads)
+    np.savez(md_file("flag_grads.npz"),
+             **{k.replace("/", "|"): v for k, v in flag_grads.items()})
+    del flag_grads
     check_launches(flag["launches"],
                    {"closest_hit": n_blocks, "any_hit": n_blocks},
                    "flagship train step")
@@ -2862,6 +3342,8 @@ def main() -> int:
                                "fused_any_hit": mm_blocks},
                    f"multimesh render_scene ({mm_blocks} ray blocks)")
     check_frame(mm, mm_frame, MM_WIDTH, MM_HEIGHT, "multimesh")
+    np.save(md_file("mm_u8.npy"), render_pipeline.quantize_u8(mm_frame)
+            .cpu().numpy())
 
     def mm_forward():
         with torch.no_grad():
@@ -3278,6 +3760,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("33 16-mesh scene from OBJ")
 
+    # ---- 34-37. several ranks: NCCL with one rank, then MD_RANKS ranks ------
+    md = multidevice_phase(ci, card_line)
+    lap(f"34-37 multi-device ({md['label']})")
+
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
         k: mmt["launches"][k] for k in ("fused_closest_hit", "fused_any_hit")},
@@ -3316,6 +3802,16 @@ def main() -> int:
         if any(t["launches"].get(name) for t in turns["turns"]):
             row.setdefault("launches_by_path", {})["scene_file_turns"] = [
                 t["launches"].get(name, 0) for t in turns["turns"]]
+        # The multi-device paths: one count for each rank.
+        for path, key, sub in (
+                ("sharded_flagship_frame", "flagship", "frame_launches"),
+                ("sharded_flagship_step", "flagship", "step_launches"),
+                ("geo_sharded_multimesh_frame", "geo", "launches"),
+                ("sharded_cli_progress", "cli", "launches"),
+                ("geo_sharded_cli_progress", "cli_geo", "launches")):
+            per_rank = [r[key][sub].get(name, 0) for r in md["per_rank"]]
+            if any(per_rank):
+                row.setdefault("launches_by_path", {})[path] = per_rank
         row["tile_walk_ms"] = n["tile_walk_ms"]
         row["tile_walk"] = {"name": old, "ms": n["tile_walk_ms"],
                             "launches": launches.get(old, 0)}
@@ -3349,7 +3845,7 @@ def main() -> int:
         "progress": progress, "resumable": resumable,
         "show_normals": normals, "show_ac": show_ac,
         "texture_paint": paint, "camera_pose": pose, "turntable": turntable,
-        "trace": traced,
+        "trace": traced, "multidevice": md,
         "intersect_sass": walk_sass,
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
                    "k9_ab": kprobe["ab"], "k9_sass": kprobe["sass"],

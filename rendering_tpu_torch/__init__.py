@@ -13,6 +13,9 @@ names follow the JAX package so each counterpart is easy to find:
   render              ray generation, integrator, render pipeline,
                       animation (camera paths, multi-frame serving)
   diff                inverse-rendering train step, checkpoints
+  parallel            several ranks on torch.distributed: ray sharding,
+                      the gradient all-reduce, geometry sharding,
+                      process-group init
   utils               BMP, timers, statistics, nvcc builds, profiling
   cli                 `python -m rendering_tpu_torch scene.scene`
   convert             JAX scene leaves (as numpy) -> port SceneData

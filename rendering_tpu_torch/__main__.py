@@ -1,3 +1,3 @@
-from rendering_tpu_torch.cli import main
+from rendering_tpu_torch.cli import entry
 
-raise SystemExit(main())
+raise SystemExit(entry())

@@ -37,6 +37,7 @@ from rendering_tpu_torch.models.scene import (
     SceneStatic,
     fused_tables,
     mesh_data,
+    uses_fused_tables,
 )
 from rendering_tpu_torch.models.settings import RenderSettings
 
@@ -92,7 +93,8 @@ def scene_from_numpy(leaves: dict[str, np.ndarray], static: dict,
         meshes.append(mesh_data(
             ms, arr("v"), arr("n"), arr("uv"), arr("tangent"),
             arr("bitangent"), arr("diffuse_map"), arr("normal_map"),
-            arr("specular_map"), reach=reach[-1], fused=st.n_meshes >= 2,
+            arr("specular_map"), reach=reach[-1],
+            fused=uses_fused_tables(st.settings, st.n_meshes),
             nodes=tuple(arr(k) for k in ("node_min", "node_max", "skip",
                                          "real_flag")),
         ))

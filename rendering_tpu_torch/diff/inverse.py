@@ -81,7 +81,7 @@ def adam(params: list) -> torch.optim.Optimizer:
 
 def make_train_step(paths: Sequence[Path],
                     optimizer: Callable[[list], torch.optim.Optimizer] | None = None,
-                    render_fn=None):
+                    mesh=None, render_fn=None):
     """Build (init_fn, step_fn):
 
         opt_state = init_fn(params)
@@ -91,6 +91,12 @@ def make_train_step(paths: Sequence[Path],
     tensors (default `adam`); opt_state is that optimizer. The loss is
     the mean squared pixel difference between the (3, H, W) frame of
     `render_fn(scene)` (default: `render_scene`'s frame) and `target`.
+    With `mesh` (a ray mesh, `parallel.shard.make_ray_mesh`) the default
+    frame is `render_scene_sharded`'s, every rank computes the same loss,
+    its backward leaves its share of each gradient, and the shares are
+    summed over the ranks during backward
+    (`parallel.overlap.GradReducer`) before the optimizer steps on every
+    rank: the parameters stay equal bit for bit across the ranks.
     step_fn returns the same parameter tensors, stepped in place, and
     the loss of the step, detached. The step runs under
     `deterministic_algorithms`, so two steps from the same state are
@@ -98,8 +104,25 @@ def make_train_step(paths: Sequence[Path],
     paths = tuple(tuple(p) for p in paths)
     optimizer = optimizer or adam
     if render_fn is None:
-        def render_fn(s):
-            return render_scene(s)[0]
+        if mesh is not None:
+            from rendering_tpu_torch.parallel.shard import (
+                render_scene_sharded,
+            )
+
+            def render_fn(s):
+                return render_scene_sharded(s, mesh)[0]
+        else:
+            def render_fn(s):
+                return render_scene(s)[0]
+
+    def backward(loss, params):
+        if mesh is None:
+            loss.backward()
+            return
+        from rendering_tpu_torch.parallel.overlap import GradReducer
+
+        with GradReducer(params.values(), mesh.rays):
+            loss.backward()
 
     def init_fn(params: dict):
         return optimizer(list(params.values()))
@@ -109,7 +132,7 @@ def make_train_step(paths: Sequence[Path],
             opt_state.zero_grad(set_to_none=True)
             frame = render_fn(apply_params(scene, params, paths))
             loss = torch.mean((frame - target) ** 2)
-            loss.backward()
+            backward(loss, params)
             opt_state.step()
         return params, opt_state, loss.detach()
 

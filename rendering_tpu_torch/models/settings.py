@@ -1,9 +1,8 @@
 """Render settings — the fields of `rendering_tpu.models.settings` that
 the port reads, and the scene-file key map.
 
-TPU-only knobs (pallas_interpret, use_mxu_intersect, geo_shard_axis,
-anyhit_tri_chunk, anyhit_n_sub, bruteforce_threshold, tri_chunk) have no
-counterpart here.
+TPU-only knobs (pallas_interpret, use_mxu_intersect, anyhit_tri_chunk,
+anyhit_n_sub, bruteforce_threshold, tri_chunk) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -55,6 +54,13 @@ class RenderSettings:
     anyhit_compact_frac: float = 0.0
     # "nearest" (the reference's truncating texel index) or "bilinear".
     texture_filter: str = "nearest"
+    # By-primitive geometry sharding (`parallel.geoshard`): set to "geo"
+    # at build time, the scene takes the fused tables even for one mesh
+    # and keeps its per-triangle tensors in host memory until each rank
+    # stages its own shard; trace_closest and trace_occlusion then
+    # combine each ray's result over the scene's geo group. Such a scene
+    # renders only through `parallel.geoshard`.
+    geo_shard_axis: str | None = None
 
     def replace(self, **kw) -> "RenderSettings":
         return dataclasses.replace(self, **kw)

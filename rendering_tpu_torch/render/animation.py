@@ -90,25 +90,26 @@ def orbit_cameras(center, radius: float, n_frames: int, *,
     return out
 
 
-def _one_device(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "render_frames over a device mesh is not ported yet; it comes "
-            "with the multi-device slice of the port")
+def _render_one(s, mesh, ray_block, out_u8):
+    """`render`, or `parallel.shard.render_sharded` over `mesh`."""
+    if mesh is None:
+        return render(s, ray_block=ray_block, out_u8=out_u8)
+    from rendering_tpu_torch.parallel.shard import render_sharded
+
+    return render_sharded(s, mesh, ray_block=ray_block, out_u8=out_u8)
 
 
 def render_frames(scene, cameras, *, mesh=None,
                   ray_block: int = DEFAULT_RAY_BLOCK, out_u8: bool = False):
     """One frame per (pos, rot_deg) camera, each `render`'s ((H, W, 3)
     numpy frame, aux), yielded lazily so that a caller can stream frames
-    to disk or an encoder without holding the animation. With `out_u8`
-    frames are the BMP writer's u8 codes, quantized on the device (4x
-    smaller pull). Each frame keeps `render`'s redo of an SSAA overflow
-    or of dropped transparent paths. `mesh` (multi-device) raises
-    NotImplementedError."""
-    _one_device(mesh)
-    return (render(set_camera(scene, pos, rot_deg=rot), ray_block=ray_block,
-                   out_u8=out_u8) for pos, rot in cameras)
+    to disk or an encoder without holding the animation. With `mesh`
+    each frame renders sharded over the ray mesh (`render_sharded`, the
+    same frame on every rank). With `out_u8` frames are the BMP writer's
+    u8 codes, quantized on the device (4x smaller pull). Each frame keeps
+    the redo of an SSAA overflow or of dropped transparent paths."""
+    return (_render_one(set_camera(scene, pos, rot_deg=rot), mesh, ray_block,
+                        out_u8) for pos, rot in cameras)
 
 
 def render_frames_pipelined(scene, cameras, *, mesh=None,
@@ -120,25 +121,37 @@ def render_frames_pipelined(scene, cameras, *, mesh=None,
     redo test reads) behind a CUDA event that `finish` waits for, so the
     card computes the next frame while the host takes the previous one.
     Same outputs as render_frames: a frame whose SSAA mask outgrew the
-    queue (`default_ssaa_capacity`) or whose transparent queue dropped
-    paths is redone through `render`'s escalating wrapper. The SSAA pass
-    reads its mask size on the host while it is queued (`torch.nonzero`),
-    so on an SSAA scene queuing frame k + 1 waits for its primary pass.
-    depth <= 1 renders one frame at a time. `mesh` (multi-device) raises
-    NotImplementedError."""
-    _one_device(mesh)
-    return _pipelined(scene, cameras, ray_block=ray_block, out_u8=out_u8,
-                      depth=depth)
+    queue (`default_ssaa_capacity`, padded to the rank count under a
+    mesh, as the sharded pass pads it) or whose transparent queue
+    dropped paths is redone through the escalating wrapper. The SSAA
+    pass reads its mask size on the host while it is queued
+    (`torch.nonzero`), so on an SSAA scene queuing frame k + 1 waits for
+    its primary pass; so do a mesh's collectives. depth <= 1 renders one
+    frame at a time."""
+    return _pipelined(scene, cameras, mesh=mesh, ray_block=ray_block,
+                      out_u8=out_u8, depth=depth)
 
 
-def _pipelined(scene, cameras, *, ray_block, out_u8, depth):
+def _pipelined(scene, cameras, *, mesh, ray_block, out_u8, depth):
     st = scene.static.settings
     cap = default_ssaa_capacity(st)
     cuda = scene.device.type == "cuda"
+    if mesh is None:
+        render_fn = render_scene
+    else:
+        from rendering_tpu_torch.parallel.shard import (
+            _pad_to,
+            render_scene_sharded,
+        )
+
+        cap = _pad_to(cap, mesh.rays.size)
+
+        def render_fn(s, **kw):
+            return render_scene_sharded(s, mesh, **kw)
 
     def dispatch(s):
         with torch.no_grad():
-            frame, aux = render_scene(s, ray_block=ray_block, out_u8=out_u8)
+            frame, aux = render_fn(s, ray_block=ray_block, out_u8=out_u8)
         if not out_u8:
             frame = frame.permute(1, 2, 0)
         dropped = aux["stats"]["paths_dropped"]
@@ -159,7 +172,7 @@ def _pipelined(scene, cameras, *, ray_block, out_u8, depth):
                     and aux["ssaa_masked"] > cap)
         if overflow or float(dropped) > 0:
             # Redo through the escalating wrapper (this frame only).
-            return render(s, ray_block=ray_block, out_u8=out_u8)
+            return _render_one(s, mesh, ray_block, out_u8)
         return host.numpy(), aux
 
     pending = deque()

@@ -24,7 +24,9 @@ place into scene tensors. A scene of one mesh queries that mesh's tables
 two-phase K6); a scene of two or more queries the fused tables of all of
 them at once (K5). With useAC, a mesh clipped by its root box is queried
 through the root filter (K4); with collectStatistics the queries count
-their tests (K3) into the stats. The gather tables come from
+their tests (K3) into the stats. Under geometry sharding
+(`parallel.geoshard`) the fused queries run on this rank's shard of the
+tables and combine over the scene's geo group. The gather tables come from
 `pipeline.derive_mesh_tables`. `shade_normals` is the showNormals pass:
 the closest hit and its normal, one bounce.
 """
@@ -72,6 +74,7 @@ from rendering_tpu_torch.ops.texture import (
     sample_packed_bilinear_r,
     sample_packed_r,
 )
+from rendering_tpu_torch.parallel import collectives
 
 # Rays per block of the bounce body (bounds every per-ray temporary):
 # 131072 rays = 256 kernel tiles per closest-hit launch.
@@ -203,13 +206,23 @@ def _fused_mesh_hits(scene, ro3, rd3, t_limit, stats):
     st = scene.static
     settings = st.settings
     ft = scene.fused_itables
-    _, mid, vid, *counters = cuda_intersect.intersect_fused(
+    t_d, mid, vid, *counters = cuda_intersect.intersect_fused(
         ft, ro3.detach(), rd3.detach(),
         t_limit.detach() if t_limit is not None else None,
         mode="closest", **_query_flags(settings, ft.any_clipped),
     )
+    comm = scene.geo_comm
+    if comm is not None:
+        # Geometry sharding: this rank queried its shard of the tables;
+        # the winner over the geo axis, first rank on equal t.
+        mid, vid, counters = collectives.combine_closest(comm, t_d, mid, vid,
+                                                         counters)
     _add_counters(stats, counters)
-    g = scene.fused_vgeoT[:, vid.long()]  # (30, Q); vid is 0 on a miss
+    if scene.vgeoT_sharded is not None:
+        # The gather table is sharded by columns too.
+        g = collectives.gather_sharded_rows(comm, scene.vgeoT_sharded, vid)
+    else:
+        g = scene.fused_vgeoT[:, vid.long()]  # (30, Q); vid is 0 on a miss
     t_r, u_r, v_r, _ = ray_triangle_r(
         ro3, rd3, g[0:3], g[3:6], g[6:9], settings.use_backface_culling
     )
@@ -323,6 +336,12 @@ def trace_occlusion(scene, ro3, rd3, dist):
             fts, ro3, rd3, dist_m, mode="any",
             **_query_flags(settings, fts.any_clipped),
         )
+        if scene.geo_comm is not None:
+            # Geometry sharding: occluded where any shard occludes.
+            occ, *counters = out if settings.collect_statistics else (out,)
+            occ, counters = collectives.combine_any(scene.geo_comm, occ,
+                                                    counters)
+            out = (occ, *counters) if counters else occ
         return occluded | _occlusion(out, stats, settings), stats
     for mesh, ms, opq in zip(scene.meshes, st.meshes, opaque(KIND_MESH)):
         if not opq or mesh.itables is None:

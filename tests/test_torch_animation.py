@@ -27,6 +27,7 @@ import torch
 from rendering_tpu.render import animation as j_anim
 from rendering_tpu.utils.bmp import quantize_reference
 from rendering_tpu_torch.models.objloader import euler_matrix
+from rendering_tpu_torch.parallel.shard import make_ray_mesh
 from rendering_tpu_torch.render import animation as t_anim
 from rendering_tpu_torch.render.pipeline import render
 from rendering_tpu_torch.utils.profiling import find_traces, op_profile, trace
@@ -143,10 +144,20 @@ def test_pipelined_redoes_ssaa_overflow(scenes, monkeypatch):
 
 
 def test_mesh_raises(scenes):
+    """render_frames*(mesh=) on a one-rank ray mesh (this process alone)
+    gives render_frames' frames without one; an object that is no mesh
+    raises. tests/test_torch_parallel.py runs the mesh paths on several
+    ranks."""
     _, ts = scenes
+    want = [f for f, _ in t_anim.render_frames(ts, CAMS)]
+    mesh = make_ray_mesh(device="cpu")
     for fn in (t_anim.render_frames, t_anim.render_frames_pipelined):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            fn(ts, CAMS, mesh=object())
+        got = [f for f, _ in fn(ts, CAMS, mesh=mesh)]
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, atol=2e-6, rtol=0)
+        with pytest.raises(AttributeError):
+            list(fn(ts, CAMS, mesh=object()))
 
 
 def test_phase_timer_records(capsys):

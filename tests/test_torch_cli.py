@@ -227,8 +227,10 @@ def test_cli_unported_options_raise(obj_workspace):
     renderer: the BMP is within DEFAULT_TOL of JAX's render_with_progress
     u8 frame, each package from its own rays. With --trace-dir the CLI
     also writes a profiler trace there, whose op_profile has rows, and a
-    BMP within DEFAULT_TOL of JAX's frame too. --geo-shard raises
-    NotImplementedError naming what is missing."""
+    BMP within DEFAULT_TOL of JAX's frame too. --geo-shard G in this one
+    process raises unless G divides the one rank; --geo-shard 1 renders
+    the geometry-sharded strips, a BMP within DEFAULT_TOL of JAX's frame
+    too (tests/test_torch_geoshard.py runs G = 2 on two ranks)."""
     path = _progress_scene(obj_workspace, "prog.scene")
     js = j_load_scene(path, JSettings(pallas_interpret=True))
     assert js.static.settings.output_progress
@@ -238,8 +240,13 @@ def test_cli_unported_options_raise(obj_workspace):
     assert t_u8.shape == np.shape(j_u8) == (32, 64, 3)
     gt1, gt8 = golden_fractions(t_u8, np.asarray(j_u8))
     assert gt1 <= DEFAULT_TOL[0] and gt8 <= DEFAULT_TOL[1]
-    with pytest.raises(NotImplementedError, match="geo-shard"):
+    with pytest.raises(ValueError, match="must divide the 1 ranks"):
         cli.main([path, "--geo-shard", "2"], device="cpu")
+    assert cli.main([path, "--geo-shard", "1", "--output", "geo.bmp"],
+                    device="cpu") == 0
+    gt1, gt8 = golden_fractions(bmp_to_image(load_bmp("geo.bmp")),
+                                np.asarray(j_u8))
+    assert gt1 <= DEFAULT_TOL[0] and gt8 <= DEFAULT_TOL[1]
     assert cli.main([path, "--trace-dir", "tr", "--output", "traced.bmp"],
                     device="cpu") == 0
     assert len(find_traces("tr")) == 1 and op_profile("tr")

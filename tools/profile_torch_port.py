@@ -198,7 +198,8 @@ def train_step(what: str, scene, paths) -> None:
         opt.step = step
         return opt
 
-    init, step_fn = inverse.make_train_step(paths, optimizer, render_fn)
+    init, step_fn = inverse.make_train_step(paths, optimizer,
+                                            render_fn=render_fn)
     params = inverse.extract_params(scene, paths)
     state = init(params)
     step_fn(params, state, scene, target)  # warm-up
