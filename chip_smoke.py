@@ -262,6 +262,34 @@ when they share it, and is no scaling figure):
     (the fused root-filter kernels on each rank's shard): each BMP
     within test_golden.py's default limits of phase 24's.
 
+The intersection oracles without the tile-walk kernels
+(settings.use_pallas_intersect=False, the JAX package's own switch):
+
+38. the flagship (250k, 3840x1080) built with use_pallas_intersect=False:
+    above bruteforce_threshold, so every query walks the BVH through the
+    `bvh_closest` kernel (csrc/bvh_walk.cu), once per ray block for the
+    closest hits and once for the shadow rays, no other kernel; the frame
+    timed in turns with the tile walk's on the same tensors (tile, walk,
+    walk, tile; mean of 2 after a warm-up each); the middle block's two
+    queries through the kernel against the plain walk on the card (ids,
+    t, u, v bit-equal, counters equal), the plain walk's time there, the
+    kernel's time and bound (its slab and pair tests at F32_OPS_RATE);
+    the u8 frame against phase 1's (differing values printed); every
+    primary ray's hit against the tile walk's, each differing one a tie
+    (both t bit-equal through ray_triangle_r); a train step with its
+    repeat bit-equal and its loss and gradients within rtol 1e-4 (atol
+    1e-4 max|g|) of phase 5's;
+39. the 16-mesh scene at DENSE_WH (a quarter of phase 6's pixels: the
+    direct frame would take ~110 s at 1920x1080) with
+    use_pallas_intersect=False: every mesh at or below the threshold,
+    so the dense scans, no kernel launched; the frame through the
+    bilinear form (use_mxu_intersect) and through the direct scan, timed
+    once each, against phase 6's path (K5) at the same size: the direct
+    frame u8-equal but at tie rays (each differing pixel's primary ray
+    checked), the bilinear one within test_golden.py's default limits;
+    the middle block's primary hits through the bilinear form twice under
+    deterministic algorithms, bit-equal.
+
 Every query a phase holds to its plain version (phases 3, 7, 11, 12, 13,
 14, 16, 23) is also timed against the tile walk its kernel replaced, in
 turns (tile, new, new, tile; `ms` is the new walk's, `tile_walk_ms` the
@@ -517,6 +545,15 @@ MD_TIMEOUT_S = 400
 # Sharded gradients against the single-device step's: rtol, and atol
 # rtol * max|g| (tests/test_torch_parallel.py's limits).
 GRAD_RTOL = 1e-4
+# The oracles without the tile-walk kernels (phases 38-39): the rays of
+# the middle block's queries that the plain BVH walk runs on (all of
+# them: 0.7-0.8 s a query on an H100, PERF.md), and the size of the
+# dense 16-mesh frames, a quarter of phase 6's pixels (the direct dense
+# frame took 27.7 s at 960x540).
+BVH_PLAIN_RAYS = RAY_BLOCK
+DENSE_WH = (960, 540)
+# No Pallas kernel: the JAX package's closest-hit walk is this XLA loop.
+BVH_REPLACES = "rendering_tpu/ops/traversal.py:49"
 
 
 def flags(ci, name) -> dict:
@@ -3195,6 +3232,274 @@ def multidevice_phase(ci, card_line) -> dict:
                                              "cli_geo")} for r in res]}
 
 
+def hit_differences(scene_a, scene_b, ro, rd) -> dict:
+    """`integrator.trace_closest` of rays ro/rd (R, 3) on two settings of
+    one scene (its gather tables derived), a ray block at a time: the rays
+    whose hit (object, triangle) differs between the two, and how many of
+    those are ties, where both hits' t, re-evaluated through
+    ray_triangle_r, are bit-equal."""
+    from rendering_tpu_torch.render.integrator import trace_closest
+
+    differ = ties = 0
+    for b in range(0, ro.shape[0], RAY_BLOCK):
+        ro3 = ro[b:b + RAY_BLOCK].T.contiguous()
+        rd3 = rd[b:b + RAY_BLOCK].T.contiguous()
+        with torch.no_grad():
+            ha, _ = trace_closest(scene_a, ro3, rd3)
+            hb, _ = trace_closest(scene_b, ro3, rd3)
+        d = (ha.obj != hb.obj) | (ha.tri != hb.tri)
+        differ += int(d.sum())
+        ties += int((d & (ha.t.view(torch.int32)
+                          == hb.t.view(torch.int32))).sum())
+    return {"rays": int(ro.shape[0]), "differ": differ, "ties": ties}
+
+
+def walk_numbers(traversal, query, n_plain: int) -> dict:
+    """The walk's kernel against its plain version on a query that
+    `kept_call` kept from `integrator.traverse_bvh` (its first n_plain
+    rays): ids equal, t, u, v bit-equal, both counters
+    equal; the plain walk's host seconds there, the kernel's ms on the
+    whole query (CUDA events, mean of 5) and its counters."""
+    mesh, ro, rd, tl = query["args"]
+    kw = query["kwargs"]
+    sl = slice(0, n_plain)
+    part = (ro[sl].contiguous(), rd[sl].contiguous(),
+            tl[sl].contiguous() if tl is not None else None)
+    plain_s, want = host_s(lambda: traversal.traverse_bvh_plain(
+        mesh, *part, **kw))
+    got = traversal.traverse_bvh(mesh, *part, **kw)
+    mism = {"ids": int((got.tri != want.tri).sum())}
+    for name in ("t", "u", "v"):
+        mism[name] = int((getattr(got, name).view(torch.int32)
+                          != getattr(want, name).view(torch.int32)).sum())
+    mism["counters"] = [int(got.box_tests) - int(want.box_tests),
+                        int(got.tri_tests) - int(want.tri_tests)]
+    whole = traversal.traverse_bvh(mesh, ro, rd, tl, **kw)
+    ms = mean_ms(lambda: traversal.traverse_bvh(mesh, ro, rd, tl, **kw),
+                 reps=5)
+    return {"rays": int(ro.shape[0]), "plain_rays": int(part[0].shape[0]),
+            "hits": int((whole.tri >= 0).sum()),
+            "box_tests": int(whole.box_tests),
+            "tri_tests": int(whole.tri_tests), "ms": ms,
+            "plain_s": plain_s, "mismatches": mism,
+            "max_abs_err": float((got.t - want.t).abs().max())}
+
+
+def walk_bound(mesh, q: dict, limited: bool) -> dict:
+    """The least time of a walk query: its f32 operations (the slab tests
+    and pair tests its counters count, AC_SLAB_OPS and OPS_PER_PAIR each)
+    at F32_OPS_RATE, or its bytes (the rays and limits read once, the
+    nodes, leaf ids and vertices once, t, id, u, v written once) at
+    HBM_RATE, the larger."""
+    ops = q["box_tests"] * AC_SLAB_OPS + q["tri_tests"] * OPS_PER_PAIR
+    nbytes = (q["rays"] * (24 + 4 * limited + 16)
+              + sum(getattr(mesh, k).numel() * 4
+                    for k in ("node_min", "node_max", "skip", "leaf_start",
+                              "leaf_count", "real_flag", "leaf_tris", "v")))
+    ops_ms = ops / F32_OPS_RATE * 1e3
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def bvh_flagship_phase(ci, card_line, flag_loss: float) -> tuple[dict, dict]:
+    """Phase 38: the flagship built with use_pallas_intersect=False (the
+    250k mesh is above bruteforce_threshold, so every query walks the BVH
+    through `bvh_closest`): the frame (each ray block's closest hits and
+    shadow rays, one launch each, no tile-walk kernel), timed; the middle
+    block's two queries through the kernel against the plain walk (the
+    first BVH_PLAIN_RAYS rays) and timed; the primary hits against the
+    tile walk's (phase 1's path) on every ray, differing ones ties; the
+    u8 frame against phase 1's; a train step, its repeat bit-equal, its
+    loss and gradients against phase 5's. Returns (numbers, the kernel
+    row's numbers)."""
+    import numpy as np
+
+    from rendering_tpu_torch.flagship import build_flagship_scene
+    from rendering_tpu_torch.ops import traversal
+    from rendering_tpu_torch.render import integrator, pipeline
+    from rendering_tpu_torch.render.raygen import primary_rays
+
+    t0 = time.perf_counter()
+    scene = build_flagship_scene(
+        WIDTH, HEIGHT, n_tris=N_TRIS,
+        settings_overrides=dict(use_pallas_intersect=False))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m = scene.meshes[0]
+    if scene.static.meshes[0].n_tris <= scene.static.settings.bruteforce_threshold:
+        raise AssertionError("the flagship mesh must take the BVH walk")
+    n_blocks = -(-WIDTH * HEIGHT // RAY_BLOCK)
+    # The middle block's two walks: its closest hits, then its shadow rays.
+    kept = {"closest": {}, "shadow": {}}
+    mid = n_blocks // 2
+    counts: dict = {}
+    with torch.no_grad(), \
+            kept_call(integrator, "traverse_bvh", 2 * mid, kept["closest"]), \
+            kept_call(integrator, "traverse_bvh", 2 * mid + 1, kept["shadow"]), \
+            counted(ci, counts):
+        frame3, aux = pipeline.render_scene(scene)
+    check_launches(counts, {"bvh_closest": 2 * n_blocks},
+                   f"BVH-walk flagship render_scene ({n_blocks} ray blocks)")
+    check_frame(scene, frame3, WIDTH, HEIGHT, "BVH-walk flagship")
+    u8 = pipeline.quantize_u8(frame3).cpu().numpy()
+    u8_diff = int((u8 != np.load(md_file("flag_u8.npy"))).sum())
+    stats = {k: float(v) for k, v in aux["stats"].items()}
+
+    def forward(s):
+        def run():
+            with torch.no_grad():
+                pipeline.render_scene(s)
+        return run
+
+    # In turns with the tile walk's frame (phase 1's path) on the same
+    # tensors: tile, walk, walk, tile.
+    tile = with_settings(scene, use_pallas_intersect=True)
+    turns = [mean_ms(forward(x), reps=2) for x in (tile, scene, scene, tile)]
+    frame_ms = (turns[1] + turns[2]) / 2
+    print(f"BVH-walk flagship frame {WIDTH}x{HEIGHT}: {frame_ms:.3f} ms "
+          f"(built in {build_s:.1f} s); A/B frame ms, tile walk, BVH walk, "
+          f"BVH walk, tile walk: {turns}; {u8_diff} u8 values differ from "
+          f"phase 1's frame; stats {stats} on {card_line}")
+
+    queries = {}
+    for key in ("closest", "shadow"):
+        q = walk_numbers(traversal, kept[key], BVH_PLAIN_RAYS)
+        q.update(walk_bound(m, q, key == "shadow"))
+        queries[key] = q
+        print(f"bvh_closest {key} query, middle block: {json.dumps(q)}")
+        mism = q["mismatches"]
+        if any(mism[k] for k in ("ids", "t", "u", "v")) or any(
+                mism["counters"]) or q["hits"] == 0:
+            raise AssertionError(f"bvh_closest disagrees with the plain "
+                                 f"walk on the {key} query: {mism}")
+    del kept
+
+    derived = pipeline.derive_mesh_tables(scene)
+    ro, rd, _ = primary_rays(scene)
+    ties = hit_differences(derived, with_settings(
+        derived, use_pallas_intersect=True), ro, rd)
+    print(f"primary hits, BVH walk vs tile walk: {json.dumps(ties)}")
+    if ties["differ"] != ties["ties"]:
+        raise AssertionError("a primary hit of the BVH walk differs from "
+                             "the tile walk's other than by a tie")
+    del derived, ro, rd, frame3, tile
+
+    grads: dict = {}
+    step = train(ci, scene, BENCH_PATHS, reps=1,
+                 zero_ok=("lights/0/intensity", "obj_color"), kept=grads)
+    check_launches(step["launches"], {"bvh_closest": 2 * n_blocks},
+                   "BVH-walk flagship train step")
+    ref = {k.replace("|", "/"): v
+           for k, v in np.load(md_file("flag_grads.npz")).items()}
+    ok, worst = grads_close(grads, ref, GRAD_RTOL)
+    loss_err = abs(step["loss"] - flag_loss) / abs(flag_loss)
+    print(f"BVH-walk flagship fwd+bwd step: {step['step_ms']:.3f} ms, peak "
+          f"{step['peak_bytes'] / 2**30:.3f} GiB; loss {step['loss']:.8f} "
+          f"(phase 5 {flag_loss:.8f}, rel {loss_err:.3e}); gradients vs "
+          f"phase 5's: worst {worst:.3e} of the tolerance on {card_line}")
+    if not ok or loss_err > GRAD_RTOL:
+        raise AssertionError("the BVH walk's train step is outside phase "
+                             "5's tolerance")
+    del scene
+    torch.cuda.empty_cache()
+    out = {"build_s": build_s, "frame_ms": frame_ms, "ab_frame_ms": turns,
+           "stats": stats,
+           "u8_diff_phase1": u8_diff, "primary_vs_tile_walk": ties,
+           "queries": queries, "fwd_bwd": step, "grad_worst": worst,
+           "loss_rel_err": loss_err}
+    c = queries["closest"]
+    row = {"launches": counts["bvh_closest"],
+           "launches_by_path": {"bvh_flagship_frame": counts["bvh_closest"],
+                                "bvh_flagship_step":
+                                    step["launches"]["bvh_closest"]},
+           "max_abs_err": max(q["max_abs_err"] for q in queries.values()),
+           "ms": c["ms"], "plain_ms": c["plain_s"] * 1e3,
+           "plain_rays": c["plain_rays"], "bound_ms": c["bound_ms"],
+           "bound_by": c["bound_by"], "shadow_ms": queries["shadow"]["ms"]}
+    return out, row
+
+
+def dense_multimesh_phase(ci, card_line) -> dict:
+    """Phase 39: the 16-mesh scene built with use_pallas_intersect=False
+    (every mesh at or below bruteforce_threshold: the dense scans) at
+    DENSE_WH (at 1920x1080 the direct frame alone takes ~110 s): the
+    frame with use_mxu_intersect on and off, timed once each, no kernel
+    launched; against phase 6's path (K5) at the same size: the direct
+    frame u8-equal but at tie rays (each differing pixel's primary ray
+    checked), the bilinear frame within test_golden.py's default limits;
+    the middle block's primary hits through the bilinear form twice under
+    deterministic algorithms, bit-equal (its cuBLAS product lifts the
+    mode's alert, `ops.bruteforce_mxu.matmul_f32`)."""
+    import numpy as np
+
+    from rendering_tpu_torch.device import deterministic_algorithms
+    from rendering_tpu_torch.flagship import build_multimesh_scene
+    from rendering_tpu_torch.render import pipeline
+    from rendering_tpu_torch.render.integrator import trace_closest
+    from rendering_tpu_torch.render.raygen import primary_rays
+
+    w, h = DENSE_WH
+    dense = build_multimesh_scene(
+        w, h, n_meshes=MM_MESHES, tris_per_mesh=MM_TRIS_PER_MESH,
+        settings_overrides=dict(use_pallas_intersect=False))
+    if max(ms.n_tris for ms in dense.static.meshes) > \
+            dense.static.settings.bruteforce_threshold:
+        raise AssertionError("every mesh must take the dense scan")
+    kernels = with_settings(dense, use_pallas_intersect=True)
+    with torch.no_grad():
+        ref = pipeline.quantize_u8(pipeline.render_scene(kernels)[0])
+    out = {"wh": [w, h]}
+    frames = {}
+    for mxu in (True, False):
+        scene = with_settings(dense, use_mxu_intersect=mxu)
+        counts: dict = {}
+        with torch.no_grad(), counted(ci, counts):
+            s, (frame3, aux) = host_s(lambda: pipeline.render_scene(scene))
+        print(f"dense multimesh (mxu={mxu}) launches: "
+              f"{ {k: n for k, n in counts.items() if n} }")
+        if any(counts.values()):
+            raise AssertionError("the dense path launched a kernel")
+        check_frame(scene, frame3, w, h, f"dense multimesh mxu={mxu}")
+        frames[mxu] = pipeline.quantize_u8(frame3)
+        out["mxu" if mxu else "direct"] = {
+            "frame_s": s,
+            "stats": {k: float(v) for k, v in aux["stats"].items()},
+            "u8_diff_k5": int((frames[mxu] != ref).sum())}
+    out["mxu"]["golden_measures"] = golden_measures(
+        frames[True].cpu().numpy(), ref.cpu().numpy())
+    derived = pipeline.derive_mesh_tables(dense)
+    ro, rd, pix = primary_rays(dense)
+    mid = (-(-ro.shape[0] // RAY_BLOCK) // 2) * RAY_BLOCK
+    ro3 = ro[mid:mid + RAY_BLOCK].T.contiguous()
+    rd3 = rd[mid:mid + RAY_BLOCK].T.contiguous()
+    with torch.no_grad(), deterministic_algorithms():
+        a, _ = trace_closest(derived, ro3, rd3)
+        b, _ = trace_closest(derived, ro3, rd3)
+    out["mxu"]["repeat_bit_equal"] = bool(
+        torch.equal(a.tri, b.tri) and torch.equal(a.obj, b.obj)
+        and torch.equal(a.t.view(torch.int32), b.t.view(torch.int32)))
+    # Each pixel where the direct frame differs: its primary ray on both
+    # paths.
+    sel = (frames[False] != ref).any(dim=-1).reshape(-1)[pix.long()]
+    ties = hit_differences(with_settings(derived, use_mxu_intersect=False),
+                           with_settings(derived, use_pallas_intersect=True),
+                           ro[sel], rd[sel])
+    out["direct"]["differing_pixels"] = ties
+    print(f"dense multimesh {w}x{h}: {json.dumps(out)} on {card_line}")
+    if ties["ties"] != ties["rays"]:
+        raise AssertionError("the direct dense frame differs from the "
+                             "kernels' other than at tie rays")
+    if any(m > t for m, t in zip(out["mxu"]["golden_measures"],
+                                 DEFAULT_GOLDEN_TOL)):
+        raise AssertionError("the bilinear frame is outside test_golden.py's"
+                             " default limits of the kernels' frame")
+    if not out["mxu"]["repeat_bit_equal"]:
+        raise AssertionError("repeat bilinear hits differ under "
+                             "deterministic algorithms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3764,6 +4069,13 @@ def main() -> int:
     md = multidevice_phase(ci, card_line)
     lap(f"34-37 multi-device ({md['label']})")
 
+    # ---- 38-39. the oracles without the tile-walk kernels -----------------
+    bvh, bvh_row = bvh_flagship_phase(ci, card_line, flag["loss"])
+    lap("38 BVH-walk flagship")
+    dense = dense_multimesh_phase(ci, card_line)
+    torch.cuda.empty_cache()
+    lap("39 dense multimesh")
+
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
         k: mmt["launches"][k] for k in ("fused_closest_hit", "fused_any_hit")},
@@ -3819,6 +4131,8 @@ def main() -> int:
     rows += probe_rows
     rows.append({"name": "ac_walk", "route": "cuda", "source": AC_SOURCE,
                  "replaces": AC_REPLACES, **ac_row, "library_ms": None})
+    rows.append({"name": "bvh_closest", "route": "cuda", "source": AC_SOURCE,
+                 "replaces": BVH_REPLACES, **bvh_row, "library_ms": None})
 
     print(json.dumps({
         "card": card_line,
@@ -3846,6 +4160,7 @@ def main() -> int:
         "show_normals": normals, "show_ac": show_ac,
         "texture_paint": paint, "camera_pose": pose, "turntable": turntable,
         "trace": traced, "multidevice": md,
+        "bvh_flagship": bvh, "dense_multimesh": dense,
         "intersect_sass": walk_sass,
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
                    "k9_ab": kprobe["ab"], "k9_sass": kprobe["sass"],

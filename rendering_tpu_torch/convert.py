@@ -12,9 +12,10 @@ flattens the JAX scene, e.g.
 
 Keys are dotted paths ("cam_pos", "meshes.0.v", "lights.1.color").
 Only the canonical arrays, each mesh's BVH reach boxes
-("meshes.0.reach_lo", "meshes.0.reach_hi") and its BVH node arrays
-("meshes.0.node_min", "node_max", "skip", "real_flag": the showAC walk's)
-are read; the kernel chunk
+("meshes.0.reach_lo", "meshes.0.reach_hi") and its BVH arrays
+("meshes.0.node_min", "node_max", "skip", "real_flag", "leaf_start",
+"leaf_count", "leaf_tris": what the showAC and closest-hit walks read)
+are read, so both packages walk the same tree; the kernel chunk
 tables (per mesh, or fused for two or more meshes) are rebuilt from
 them exactly as `models.scene.build_scene` builds them, and the gather
 tables are derived in each render. The BVH counts (n_real_nodes,
@@ -31,6 +32,7 @@ import torch
 
 from rendering_tpu_torch.device import resolve_device
 from rendering_tpu_torch.models.scene import (
+    BVH_FIELDS,
     LightData,
     MeshStatic,
     SceneData,
@@ -95,8 +97,7 @@ def scene_from_numpy(leaves: dict[str, np.ndarray], static: dict,
             arr("bitangent"), arr("diffuse_map"), arr("normal_map"),
             arr("specular_map"), reach=reach[-1],
             fused=uses_fused_tables(st.settings, st.n_meshes),
-            nodes=tuple(arr(k) for k in ("node_min", "node_max", "skip",
-                                         "real_flag")),
+            nodes=tuple(arr(k) for k in BVH_FIELDS),
         ))
     ft, fts = fused_tables(
         st, [leaves[f"meshes.{i}.v"] for i in range(st.n_meshes)], reach)

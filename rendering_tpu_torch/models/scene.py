@@ -151,14 +151,22 @@ class MeshData(_Movable):
     # Kernel chunk tables; None for a mesh without triangles and in a
     # scene of two or more meshes, which reads the fused tables instead.
     itables: Optional[IntersectTables]
-    # The flat BVH (accel.bvh.FlatBVH) that the showAC walk reads
-    # (ops/traversal.py), kept in a fused scene too: node boxes, the
-    # jump target on a box miss, and the first-flat-node-of-an-AC-node
-    # flag.
-    node_min: Optional[torch.Tensor] = None   # (N, 3) f32
-    node_max: Optional[torch.Tensor] = None   # (N, 3) f32
-    skip: Optional[torch.Tensor] = None       # (N,) int32
-    real_flag: Optional[torch.Tensor] = None  # (N,) int32
+    # The flat BVH (accel.bvh.FlatBVH) that the showAC walk and the
+    # closest-hit walk read (ops/traversal.py), kept in a fused scene too:
+    # node boxes, the jump target on a box miss, the first-flat-node-of-
+    # an-AC-node flag, and each leaf chunk's triangles (leaf_count of them
+    # from leaf_start in leaf_tris; 0 for an inner node).
+    node_min: Optional[torch.Tensor] = None    # (N, 3) f32
+    node_max: Optional[torch.Tensor] = None    # (N, 3) f32
+    skip: Optional[torch.Tensor] = None        # (N,) int32
+    real_flag: Optional[torch.Tensor] = None   # (N,) int32
+    leaf_start: Optional[torch.Tensor] = None  # (N,) int32
+    leaf_count: Optional[torch.Tensor] = None  # (N,) int32
+    leaf_tris: Optional[torch.Tensor] = None   # (L,) int32
+    # Each triangle's reach box (the union of the BVH leaf boxes holding
+    # it), which the dense paths' root filter reads (ops/bruteforce.py).
+    reach_lo: Optional[torch.Tensor] = None    # (T, 3) f32
+    reach_hi: Optional[torch.Tensor] = None    # (T, 3) f32
     # Derived in each render from the arrays above, None on a built
     # scene (render.pipeline.derive_mesh_tables):
     # one transposed gather table, component-major: rows 0-8 vertices,
@@ -245,10 +253,10 @@ def mesh_data(ms: MeshStatic, v, n, uv, tangent, bitangent,
               diffuse_map=None, normal_map=None, specular_map=None, *,
               reach=None, nodes=None, fused: bool = False) -> MeshData:
     """MeshData from host numpy arrays already in Morton order, as CPU
-    tensors, with the kernel chunk tables (host numpy, rows 9-14 the BVH
-    reach boxes `reach` = (lo, hi)) unless the scene fuses its meshes
-    (`fused`), and the BVH node arrays `nodes` = (node_min, node_max,
-    skip, real_flag)."""
+    tensors, with the BVH reach boxes `reach` = (lo, hi), the kernel chunk
+    tables (host numpy, rows 9-14 the reach boxes) unless the scene fuses
+    its meshes (`fused`), and the BVH node arrays `nodes`, a tuple in
+    `BVH_FIELDS` order."""
     t_count = ms.n_tris
 
     def tensor(a):
@@ -259,7 +267,9 @@ def mesh_data(ms: MeshStatic, v, n, uv, tangent, bitangent,
         return (None if a is None
                 else torch.from_numpy(np.array(a, dtype=np.int32)))
 
-    node_min, node_max, skip, real_flag = nodes or (None,) * 4
+    node_min, node_max, skip, real_flag, *leaves = nodes or (None,) * 7
+    leaf_start, leaf_count, leaf_tris = leaves
+    reach_lo, reach_hi = reach or (None, None)
     return MeshData(
         v=tensor(v), n=tensor(n), uv=tensor(uv), tangent=tensor(tangent),
         bitangent=tensor(bitangent), diffuse_map=tensor(diffuse_map),
@@ -269,7 +279,15 @@ def mesh_data(ms: MeshStatic, v, n, uv, tangent, bitangent,
             if t_count and not fused else None),
         node_min=tensor(node_min), node_max=tensor(node_max),
         skip=index(skip), real_flag=index(real_flag),
+        leaf_start=index(leaf_start), leaf_count=index(leaf_count),
+        leaf_tris=index(leaf_tris), reach_lo=tensor(reach_lo),
+        reach_hi=tensor(reach_hi),
     )
+
+
+# The FlatBVH arrays a MeshData keeps, in `mesh_data`'s `nodes` order.
+BVH_FIELDS = ("node_min", "node_max", "skip", "real_flag", "leaf_start",
+              "leaf_count", "leaf_tris")
 
 
 def uses_fused_tables(settings: RenderSettings, n_meshes: int) -> bool:
@@ -379,8 +397,8 @@ def build_scene(sd: SceneDef, device=None) -> SceneData:
             meshes.append(mesh_data(ms, v, nrm, uv, tan, bit, o.diffuse_map,
                                     o.normal_map, o.specular_map,
                                     reach=reach, fused=fused,
-                                    nodes=(bvh.node_min, bvh.node_max,
-                                           bvh.skip, bvh.real_flag)))
+                                    nodes=tuple(getattr(bvh, k)
+                                                for k in BVH_FIELDS)))
         else:
             raise ValueError(f"unknown object kind {o.kind}")
 
@@ -440,10 +458,10 @@ def build_scene(sd: SceneDef, device=None) -> SceneData:
     return scene.to(device)
 
 
-# MeshData fields that grow with the mesh's triangles (the BVH node
-# arrays with them).
-PER_TRIANGLE = ("v", "n", "uv", "tangent", "bitangent", "node_min",
-                "node_max", "skip", "real_flag")
+# MeshData fields that grow with the mesh's triangles (the BVH arrays
+# and reach boxes with them).
+PER_TRIANGLE = ("v", "n", "uv", "tangent", "bitangent", *BVH_FIELDS,
+                "reach_lo", "reach_hi")
 
 
 def to_keeping_host_tables(scene: SceneData, device) -> SceneData:

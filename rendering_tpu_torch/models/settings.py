@@ -1,8 +1,12 @@
 """Render settings — the fields of `rendering_tpu.models.settings` that
 the port reads, and the scene-file key map.
 
-TPU-only knobs (pallas_interpret, use_mxu_intersect, anyhit_tri_chunk,
-anyhit_n_sub, bruteforce_threshold, tri_chunk) have no counterpart here.
+The intersection oracle's choice carries over with the JAX package's
+names and defaults (use_pallas_intersect, bruteforce_threshold,
+use_mxu_intersect, tri_chunk; `render.integrator` dispatches on them).
+The TPU's own knobs (pallas_interpret, a test hook of the Pallas
+interpreter, and anyhit_tri_chunk, anyhit_n_sub, chunk shapes of the
+Pallas tables) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -52,6 +56,19 @@ class RenderSettings:
     # super chunks, then the unresolved rays packed densely against the
     # rest. 0.0 = the single-pass any hit (K2).
     anyhit_compact_frac: float = 0.0
+    # The intersection oracle of each mesh query (JAX's _mesh_oracle).
+    # True: the hand-written tile-walk kernels K1-K6
+    # (ops/cuda_intersect.py), the counterparts of JAX's Pallas kernel.
+    # False: a mesh of at most bruteforce_threshold triangles takes the
+    # dense chunked Moller-Trumbore, as a bilinear-form matmul
+    # (ops/bruteforce_mxu.py) when use_mxu_intersect, else direct
+    # (ops/bruteforce.py), tri_chunk triangles a step; a larger one the
+    # threaded-BVH walk (ops/traversal.py::traverse_bvh). Every mesh is
+    # then queried on its own, in a scene of several meshes too.
+    use_pallas_intersect: bool = True
+    bruteforce_threshold: int = 8192
+    use_mxu_intersect: bool = True
+    tri_chunk: int = 256
     # "nearest" (the reference's truncating texel index) or "bilinear".
     texture_filter: str = "nearest"
     # By-primitive geometry sharding (`parallel.geoshard`): set to "geo"

@@ -44,7 +44,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from rendering_tpu_torch.models.scene import PER_TRIANGLE
+from rendering_tpu_torch.models.scene import BVH_FIELDS, PER_TRIANGLE
 from rendering_tpu_torch.ops.cuda_intersect import FusedTables, IntersectTables
 from rendering_tpu_torch.ops.geometry import FLT_MAX as FMAX
 from rendering_tpu_torch.parallel import collectives
@@ -172,16 +172,19 @@ def _host_vgeo(m):
                       m.uv.reshape(-1, 6).T, m.tangent.T, m.bitangent.T])
 
 
+_NO_BVH = {k: None for k in (*BVH_FIELDS, "reach_lo", "reach_hi")}
+
+
 def _strip_mesh_heavy(m, device):
-    """A mesh with every per-triangle tensor zero-sized (the BVH node
-    arrays dropped): the fused trace reads the table shards, shading the
-    gathered rows and the kept maps."""
+    """A mesh with every per-triangle tensor zero-sized (the BVH arrays
+    and reach boxes dropped): the fused trace reads the table shards,
+    shading the gathered rows and the kept maps."""
     z = torch.zeros
     return dataclasses.replace(
         m, v=z((0, 3, 3), device=device), n=z((0, 3, 3), device=device),
         uv=z((0, 3, 2), device=device), tangent=z((0, 3), device=device),
-        bitangent=z((0, 3), device=device), node_min=None, node_max=None,
-        skip=None, real_flag=None, itables=None, vgeoT=None)
+        bitangent=z((0, 3), device=device), itables=None, vgeoT=None,
+        **_NO_BVH)
 
 
 @dataclasses.dataclass
@@ -208,6 +211,11 @@ def prepare_geo_scene(scene, mesh: GeoMesh, shade_sharded: bool) -> GeoPrepared:
                          "RenderSettings(geo_shard_axis='geo')")
     if scene.fused_itables is None:
         raise ValueError("geometry sharding needs meshes")
+    if not st.settings.use_pallas_intersect:
+        # The per-mesh oracles would walk the (stripped) meshes whole on
+        # every rank instead of the rank's table shard.
+        raise ValueError("geometry sharding needs the tile-walk kernels "
+                         "(settings.use_pallas_intersect=True)")
     g, i, dev = mesh.geo.size, mesh.geo.rank, mesh.device
     ft = pad_fused_for_shards(scene.fused_itables, g)
     fts = scene.fused_shadow_itables
@@ -234,7 +242,7 @@ def prepare_geo_scene(scene, mesh: GeoMesh, shade_sharded: bool) -> GeoPrepared:
     else:
         # The per-mesh arrays that shading gathers from, replicated.
         meshes = tuple(dataclasses.replace(
-            m, node_min=None, node_max=None, skip=None, real_flag=None,
+            m, **_NO_BVH,
             **{k: getattr(m, k).to(dev) for k in ("v", "n", "uv", "tangent",
                                                   "bitangent")})
             for m in scene.meshes)

@@ -29,6 +29,15 @@ their tests (K3) into the stats. Under geometry sharding
 tables and combine over the scene's geo group. The gather tables come from
 `pipeline.derive_mesh_tables`. `shade_normals` is the showNormals pass:
 the closest hit and its normal, one bounce.
+
+With settings.use_pallas_intersect off, every mesh is queried on its own
+(a scene of several meshes too) by JAX's non-Pallas oracles
+(`_mesh_oracle`): a mesh of at most bruteforce_threshold triangles by the
+dense scan (`ops/bruteforce_mxu.py` with use_mxu_intersect, else
+`ops/bruteforce.py`), a larger one by the threaded-BVH walk
+(`ops/traversal.traverse_bvh`: the `bvh_closest` kernel on a card); their
+counters go into the stats whether or not collectStatistics is set, as
+JAX's do.
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ from rendering_tpu_torch.models.scene import (
     MAT_TRANSPARENT,
 )
 from rendering_tpu_torch.ops import cuda_intersect
+from rendering_tpu_torch.ops.bruteforce import bruteforce_mesh
+from rendering_tpu_torch.ops.bruteforce_mxu import bruteforce_mesh_mxu
 from rendering_tpu_torch.ops.geometry import (
     FLT_MAX,
     MORTON_INACTIVE,
@@ -74,6 +85,7 @@ from rendering_tpu_torch.ops.texture import (
     sample_packed_bilinear_r,
     sample_packed_r,
 )
+from rendering_tpu_torch.ops.traversal import traverse_bvh
 from rendering_tpu_torch.parallel import collectives
 
 # Rays per block of the bounce body (bounds every per-ray temporary):
@@ -160,26 +172,56 @@ def _per_obj3(table, obj, n_objects: int):
     return table.T[:, obj]
 
 
+@torch.no_grad()
+def _mesh_oracle(mesh, ms, settings, ro3, rd3, t_limit):
+    """One mesh's closest hit without the tile-walk kernels (JAX
+    `_mesh_oracle` with use_pallas_intersect off): the dense scan up to
+    bruteforce_threshold triangles (bilinear with use_mxu_intersect),
+    the BVH walk above. ro3/rd3 (3, Q); t_limit (Q,) or None. Returns
+    (tri (Q,) int32, -1 on a miss or at or beyond t_limit, box_tests,
+    tri_tests)."""
+    ro, rd = ro3.T, rd3.T
+    if ms.n_tris <= settings.bruteforce_threshold:
+        fn = (bruteforce_mesh_mxu if settings.use_mxu_intersect
+              else bruteforce_mesh)
+        _, tri, box, tris = fn(
+            mesh, ro, rd, t_limit,
+            backface_culling=settings.use_backface_culling,
+            tri_chunk=settings.tri_chunk,
+            use_root_filter=bool(settings.use_ac and ms.clipped_by_root))
+        return tri, box, tris
+    r = traverse_bvh(mesh, ro, rd, t_limit,
+                     backface_culling=settings.use_backface_culling,
+                     use_ac=settings.use_ac)
+    return r.tri, r.box_tests, r.tri_tests
+
+
 def _mesh_hits(scene, ro3, rd3, t_limit, stats):
-    """Per-mesh closest hits, one query per mesh (K1): lists over meshes
-    of (t, tri, u, v, geo), t re-evaluated and differentiable, FLT_MAX
-    where the mesh is not hit. Adds the queries' counters to stats."""
+    """Per-mesh closest hits, one query per mesh (K1, or `_mesh_oracle`
+    with use_pallas_intersect off): lists over meshes of (t, tri, u, v,
+    geo), t re-evaluated and differentiable, FLT_MAX where the mesh is
+    not hit. Adds the queries' counters to stats."""
     settings = scene.static.settings
     q = ro3.shape[1]
     dev = ro3.device
     cols = [], [], [], [], []
     for mesh, ms in zip(scene.meshes, scene.static.meshes):
-        if mesh.itables is None:  # a mesh without triangles
+        if ms.n_tris == 0:
             hit = (torch.full((q,), FLT_MAX, device=dev),
                    torch.full((q,), -1, dtype=torch.int32, device=dev),
                    torch.zeros((q,), device=dev), torch.zeros((q,), device=dev),
                    torch.zeros((30, q), device=dev))
         else:
-            _, tri_d, *counters = cuda_intersect.closest_hit(
-                mesh.itables, ro3.detach(), rd3.detach(),
-                t_limit.detach() if t_limit is not None else None,
-                **_query_flags(settings, ms.clipped_by_root),
-            )
+            t_lim = t_limit.detach() if t_limit is not None else None
+            if settings.use_pallas_intersect:
+                _, tri_d, *counters = cuda_intersect.closest_hit(
+                    mesh.itables, ro3.detach(), rd3.detach(), t_lim,
+                    **_query_flags(settings, ms.clipped_by_root),
+                )
+            else:
+                tri_d, *counters = _mesh_oracle(mesh, ms, settings,
+                                                ro3.detach(), rd3.detach(),
+                                                t_lim)
             _add_counters(stats, counters)
             # One gather of every per-triangle surface row: rows 0-8 feed
             # the differentiable hit re-evaluation, the rest surface_data.
@@ -254,7 +296,7 @@ def trace_closest(scene, ro3, rd3, *, t_limit=None):
     t_pln = (intersect_planes_r(ro3, rd3, scene.pln_pos, scene.pln_n)
              if st.n_planes else None)   # (Np, Q)
     hits = (_fused_mesh_hits if scene.fused_itables is not None
-            else _mesh_hits)
+            and st.settings.use_pallas_intersect else _mesh_hits)
     mesh_t, mesh_tri, mesh_u, mesh_v, mesh_geo = hits(scene, ro3, rd3,
                                                       t_limit, stats)
 
@@ -328,7 +370,7 @@ def trace_occlusion(scene, ro3, rd3, dist):
             keep = torch.tensor(mask, device=ro3.device)[:, None]
             occluded = occluded | torch.any(keep & (t < dist[None, :]), dim=0)
     fts = scene.fused_shadow_itables
-    if fts is not None:
+    if fts is not None and settings.use_pallas_intersect:
         # One fused any-hit query (K5) over every opaque mesh; rays that
         # spheres or planes already occlude enter resolved.
         dist_m = torch.where(occluded, -1.0, dist)
@@ -344,10 +386,16 @@ def trace_occlusion(scene, ro3, rd3, dist):
             out = (occ, *counters) if counters else occ
         return occluded | _occlusion(out, stats, settings), stats
     for mesh, ms, opq in zip(scene.meshes, st.meshes, opaque(KIND_MESH)):
-        if not opq or mesh.itables is None:
+        if not opq or ms.n_tris == 0:
             continue
         # Rays already occluded enter resolved (t0 = -1 culls every chunk).
         dist_m = torch.where(occluded, -1.0, dist)
+        if not settings.use_pallas_intersect:
+            tri, *counters = _mesh_oracle(mesh, ms, settings, ro3, rd3,
+                                          dist_m)
+            _add_counters(stats, counters)
+            occluded = occluded | (tri >= 0)
+            continue
         flags = _query_flags(settings, ms.clipped_by_root)
         if settings.anyhit_compact_frac > 0:
             out = cuda_intersect.any_hit_two_phase(

@@ -833,6 +833,81 @@ def test_ac_walk_kernel_matches_plain(cuda, use_ac):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(), dict(limit=True), dict(limit=True, use_ac=False),
+    dict(limit=True, prune=False), dict(backface_culling=False)],
+    ids=["closest", "t_limit", "no_ac", "no_prune", "no_culling"])
+def test_bvh_closest_kernel_matches_plain(cuda, case):
+    """The closest-hit walk's kernel (csrc/bvh_walk.cu `bvh_closest`)
+    against its plain version on a rotated 20k mesh's BVH: seeded rays
+    from outside and inside the mesh, axis-parallel ones among them,
+    limits with resolved (-1) lanes, a ragged count; ids, t, u, v
+    bit-equal and both counters equal, one launch."""
+    from rendering_tpu_torch.ops import traversal
+
+    scene = build_flagship_scene(64, 32, n_tris=20_000, device=cuda)
+    m = scene.meshes[0]
+    rng = np.random.default_rng(4)
+    n = 3 * 4096 + 77
+    ro = rng.normal(0, 1.5, (n, 3)).astype(np.float32)
+    rd = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    rd[: n // 8, rng.integers(0, 3, n // 8)] = 0.0
+    tl = rng.uniform(0.05, 4.0, n).astype(np.float32)
+    tl[rng.uniform(size=n) < 0.1] = -1.0
+    ro, rd, tl = (torch.from_numpy(a).to(cuda) for a in (ro, rd, tl))
+    kw = dict(case)
+    if not kw.pop("limit", False):
+        tl = None
+    before = traversal.KERNELS["bvh_closest"].launches
+    got = traversal.traverse_bvh(m, ro, rd, tl, **kw)
+    want = traversal.traverse_bvh_plain(m, ro, rd, tl, **kw)
+    torch.cuda.synchronize()
+    assert traversal.KERNELS["bvh_closest"].launches == before + 1
+    assert torch.equal(got.tri, want.tri)
+    assert int((want.tri >= 0).sum()) > n // 20
+    for a, b in ((got.t, want.t), (got.u, want.u), (got.v, want.v)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(got.box_tests) == int(want.box_tests)
+    assert int(got.tri_tests) == int(want.tri_tests) > n
+
+
+@pytest.mark.cuda
+def test_walk_render_on_card_matches_plain(cuda, monkeypatch):
+    """With use_pallas_intersect off, the flagship's 20k mesh (above the
+    dense threshold) renders through the walk's kernel, one launch per
+    ray block and query, and no tile-walk kernel: u8-equal, counters
+    equal, to the card's render through the plain walk, and within
+    tests/test_golden.py's DEFAULT_TOL measures of the CPU render (torch
+    on the card and on the CPU round the rays and shading apart by an
+    ulp here and there)."""
+    from rendering_tpu_torch.ops import traversal
+    from rendering_tpu_torch.render import integrator
+
+    scene = build_flagship_scene(
+        128, 64, n_tris=20_000, device="cpu",
+        settings_overrides=dict(use_pallas_intersect=False))
+    before = {k: v.launches for k, v in ci.KERNELS.items()}
+    walks = traversal.KERNELS["bvh_closest"].launches
+    with torch.no_grad():
+        frame, aux = render_scene(scene.to(cuda))
+        torch.cuda.synchronize()
+        assert traversal.KERNELS["bvh_closest"].launches == walks + 2
+        assert {k: v.launches for k, v in ci.KERNELS.items()} == before
+        cpu_u8 = quantize_u8(render_scene(scene)[0]).numpy()
+        monkeypatch.setattr(
+            integrator, "traverse_bvh",
+            lambda m, ro, rd, tl=None, **kw: traversal.traverse_bvh_plain(
+                m, ro, rd, tl, **kw))
+        plain, plain_aux = render_scene(scene.to(cuda))
+    u8 = quantize_u8(frame).cpu().numpy()
+    np.testing.assert_array_equal(u8, quantize_u8(plain).cpu().numpy())
+    for k in ("accel_struct_tests", "ray_tri_tests"):
+        assert int(aux["stats"][k]) == int(plain_aux["stats"][k]) > 0
+    d = np.abs(cpu_u8.astype(np.int16) - u8.astype(np.int16))[1:-1, 1:-1]
+    assert (d > 1).mean() <= 0.006 and (d > 8).mean() <= 0.005
+
+
+@pytest.mark.cuda
 def test_progress_render_on_card_matches_render(cuda):
     """A 384x216 progress render of the flagship scene with SSAA through
     the kernels: within JAX's strip tolerance of render() on the card,
