@@ -1,0 +1,8 @@
+"""The device's idle share of the traced window: 100 x (1 - the union of
+its kernel, copy and set intervals / the window)."""
+
+
+def read(ctx):
+    if ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
