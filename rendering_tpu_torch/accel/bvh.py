@@ -32,6 +32,7 @@ import sys
 import numpy as np
 
 from rendering_tpu_torch import native
+from rendering_tpu_torch.utils.tracing import traced
 
 F32 = np.float32
 FLT_MAX = np.float32(np.finfo(np.float32).max)
@@ -97,6 +98,7 @@ class _Node:
         self.right: "_Node | None" = None
 
 
+@traced("rt.scene.bvh")
 def build_bvh(
     tri_v: np.ndarray,
     root_bounds: np.ndarray,
@@ -107,7 +109,8 @@ def build_bvh(
     `root_bounds` (2, 3): the bounds the reference computes at OBJ load
     (objects.cpp:328-330), not a recomputed tight AABB. The C++ builder
     (built at first use; a failed build raises), or the Python builder
-    under RTPU_NATIVE=0."""
+    under RTPU_NATIVE=0. In a recorded trace the build is the span
+    `rt.scene.bvh`."""
     d = native.build_bvh_native(tri_v, root_bounds, ac_penalty, leaf_chunk)
     if d is None:
         return build_bvh_python(tri_v, root_bounds, ac_penalty, leaf_chunk)

@@ -51,6 +51,7 @@ from rendering_tpu_torch.utils.bmp import save_bmp
 from rendering_tpu_torch.utils.profiling import trace
 from rendering_tpu_torch.utils.stats import RenderStats
 from rendering_tpu_torch.utils.timer import Timer
+from rendering_tpu_torch.utils.tracing import span
 
 
 def _parse(argv):
@@ -125,8 +126,10 @@ def main(argv=None, *, device=None) -> int:
         # Ranks other than 0 print nothing.
         with (contextlib.redirect_stdout(io.StringIO()) if rank
               else contextlib.nullcontext()):
-            return _run(args, device, sharded=launched and not args.no_shard,
-                        writer=rank == 0)
+            with span("rt.cli.main"):
+                return _run(args, device,
+                            sharded=launched and not args.no_shard,
+                            writer=rank == 0)
     finally:
         if joined_here:
             dist.destroy_process_group()
@@ -178,7 +181,9 @@ def _run(args, device, *, sharded: bool, writer: bool) -> int:
 
     if settings.collect_statistics:
         rs = RenderStats()
-        rs.add_device_counts({k: int(v) for k, v in aux["stats"].items()})
+        with span("rt.sync.stats"):
+            counts = {k: int(v) for k, v in aux["stats"].items()}
+        rs.add_device_counts(counts)
         rs.mesh_count = sum(m.n_tris for m in scene.static.meshes)
         rs.tri_copies_count = sum(m.tri_copies for m in scene.static.meshes)
         rs.ac_count = sum(m.n_real_nodes for m in scene.static.meshes)
@@ -186,7 +191,8 @@ def _run(args, device, *, sharded: bool, writer: bool) -> int:
 
     if settings.image_output and writer:
         out = args.output or (settings.image_name + ".bmp")
-        save_bmp(out, frame)
+        with span("rt.pipeline.pull"):
+            save_bmp(out, frame)
         if settings.enable_output:
             print(f"Successfully wrote to output file {out}")
 

@@ -34,6 +34,7 @@ import torch
 
 from rendering_tpu_torch.device import deterministic_algorithms
 from rendering_tpu_torch.render.pipeline import render_scene
+from rendering_tpu_torch.utils.tracing import span
 
 Path = tuple
 
@@ -100,7 +101,9 @@ def make_train_step(paths: Sequence[Path],
     step_fn returns the same parameter tensors, stepped in place, and
     the loss of the step, detached. The step runs under
     `deterministic_algorithms`, so two steps from the same state are
-    bit-equal on the card too."""
+    bit-equal on the card too. In a recorded trace the step is the span
+    `rt.train.step` holding `rt.train.forward` (render and loss),
+    `rt.train.backward` and `rt.train.optimizer`."""
     paths = tuple(tuple(p) for p in paths)
     optimizer = optimizer or adam
     if render_fn is None:
@@ -128,12 +131,15 @@ def make_train_step(paths: Sequence[Path],
         return optimizer(list(params.values()))
 
     def step_fn(params: dict, opt_state, scene, target):
-        with deterministic_algorithms():
+        with span("rt.train.step"), deterministic_algorithms():
             opt_state.zero_grad(set_to_none=True)
-            frame = render_fn(apply_params(scene, params, paths))
-            loss = torch.mean((frame - target) ** 2)
-            backward(loss, params)
-            opt_state.step()
+            with span("rt.train.forward"):
+                frame = render_fn(apply_params(scene, params, paths))
+                loss = torch.mean((frame - target) ** 2)
+            with span("rt.train.backward"):
+                backward(loss, params)
+            with span("rt.train.optimizer"):
+                opt_state.step()
         return params, opt_state, loss.detach()
 
     return init_fn, step_fn

@@ -435,7 +435,8 @@ def parse_scene(path: str, base_settings: RenderSettings | None = None) -> Scene
                 elif key == "name":
                     # The reference times each OBJ load (objects.cpp:217),
                     # printed under enableOutput.
-                    t_obj = Timer("OBJ loading", cur.enable_output)
+                    t_obj = Timer("OBJ loading", cur.enable_output,
+                                  span="rt.scene.obj")
                     obj.mesh = load_obj(
                         value, obj.size, obj.rot, obj.pos, bias=cur.bias
                     )

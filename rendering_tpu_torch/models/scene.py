@@ -37,6 +37,7 @@ from rendering_tpu_torch.ops.cuda_intersect import (
     build_intersect_tables,
     default_tri_chunk,
 )
+from rendering_tpu_torch.utils.tracing import span
 
 MAT_DIFFUSE, MAT_REFLECTIVE, MAT_TRANSPARENT, MAT_PHONG = 0, 1, 2, 3
 _MAT_IDS = {
@@ -453,9 +454,10 @@ def build_scene(sd: SceneDef, device=None) -> SceneData:
         fused_shadow_itables=fts,
         static=static,
     )
-    if st.geo_shard_axis is not None:
-        return to_keeping_host_tables(scene, device)
-    return scene.to(device)
+    with span("rt.sync.upload"):
+        if st.geo_shard_axis is not None:
+            return to_keeping_host_tables(scene, device)
+        return scene.to(device)
 
 
 # MeshData fields that grow with the mesh's triangles (the BVH arrays
@@ -485,6 +487,13 @@ def to_keeping_host_tables(scene: SceneData, device) -> SceneData:
 def load_scene(path: str, base_settings: RenderSettings | None = None,
                device=None) -> SceneData:
     """Parse a `.scene` file and build it on `device` (the `Scene(path)`
-    constructor's counterpart; default: the CUDA device)."""
+    constructor's counterpart; default: the CUDA device). In a recorded
+    trace the load is the span `rt.scene.load`, holding `rt.scene.parse`
+    (the OBJ loads `rt.scene.obj` inside it), the BVH builds
+    `rt.scene.bvh`, the tables `rt.scene.tables` and the copy to the
+    device `rt.sync.upload`."""
     device = resolve_device(device)
-    return build_scene(parse_scene(path, base_settings), device=device)
+    with span("rt.scene.load"):
+        with span("rt.scene.parse"):
+            sd = parse_scene(path, base_settings)
+        return build_scene(sd, device=device)

@@ -49,6 +49,10 @@ Pipeline of one query (`closest_hit` / `any_hit`):
              tiles, which the CPU tests hold against the Pallas kernel
              in interpret mode and the card holds against the kernel.
 
+In a recorded trace (`utils.tracing`) `prepare` is the span
+`rt.intersect.prepass` and each launch (or plain version) is
+`rt.intersect.kernel`; building the tables is `rt.scene.tables`.
+
 The Pallas grid's step-table compaction (`_pair_tables`, the bucket
 ladder and its all-pairs fallbacks) exists only because a Pallas grid
 is static; the kernel's per-tile loop replaces it. The counters count
@@ -69,6 +73,7 @@ import torch
 
 from rendering_tpu_torch.ops.geometry import FLT_MAX as FMAX
 from rendering_tpu_torch.utils import nvcc
+from rendering_tpu_torch.utils.tracing import span, traced
 
 RAY_TILE = 512              # rays per kernel CTA and per pre-pass tile
 SUB_PER_SUPER = 8           # cull chunks per super chunk
@@ -139,6 +144,7 @@ def default_tri_chunk(n_tris: int) -> int:
     return min(tc, 2048)
 
 
+@traced("rt.scene.tables")
 def build_intersect_tables(v: np.ndarray, *, tri_chunk: int,
                            n_sub: int | None = None,
                            reach=None) -> IntersectTables:
@@ -227,6 +233,7 @@ class FusedTables:
                                    idmap=self.idmap.to(device))
 
 
+@traced("rt.scene.tables")
 def build_fused_tables(vs, clipped_flags, include=None,
                        reach=None) -> FusedTables | None:
     """Host numpy build of the fused tables from every mesh's
@@ -294,8 +301,11 @@ def _slab(box, ro, inv):
         lo = torch.minimum(t1, t2)
         hi = torch.maximum(t1, t2)
         if ctmin is None:
-            ctmin = torch.maximum(lo, torch.tensor(-FMAX, device=lo.device))
-            ctmax = torch.minimum(hi, torch.tensor(FMAX, device=hi.device))
+            with span("rt.sync.prepass_bounds"):
+                fmin = torch.tensor(-FMAX, device=lo.device)
+                fmax = torch.tensor(FMAX, device=hi.device)
+            ctmin = torch.maximum(lo, fmin)
+            ctmax = torch.minimum(hi, fmax)
         else:
             ctmin = torch.maximum(ctmin, lo)
             ctmax = torch.minimum(ctmax, hi)
@@ -380,6 +390,7 @@ def tile_schedule(counts: torch.Tensor, split_factor: int | None = None):
     return tile_order(counts), heavy.sum(dim=0, keepdim=True).to(torch.int32)
 
 
+@traced("rt.intersect.prepass")
 @torch.no_grad()
 def prepare(tb: IntersectTables, ro3, rd3, t_limit=None) -> Prepared:
     """Pad rays to whole 512-ray tiles and run the pre-pass (the visit
@@ -696,7 +707,8 @@ class CudaKernel:
         def ptr(x):
             return None if x is None else x.data_ptr()
 
-        with torch.cuda.device(dev):  # launch on the tensors' card
+        # launch on the tensors' card
+        with span("rt.intersect.kernel"), torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             if self.tile_walk:
                 rc = lib.rt_tile_walk(
@@ -807,10 +819,11 @@ def run_query(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
                                       two_phase=two_phase)]
         return kernel(tb, prep, backface_culling=backface_culling)
     _check_device(prep)
-    return intersect_plain(tb, prep, anyhit=anyhit,
-                           backface_culling=backface_culling,
-                           root_filter=root_filter,
-                           collect_stats=collect_stats)
+    with span("rt.intersect.kernel"):
+        return intersect_plain(tb, prep, anyhit=anyhit,
+                               backface_culling=backface_culling,
+                               root_filter=root_filter,
+                               collect_stats=collect_stats)
 
 
 @torch.no_grad()
@@ -973,10 +986,11 @@ def run_fused_query(ft: FusedTables, prep: Prepared, *, anyhit: bool,
         return kernel(ft.geo, prep, backface_culling=backface_culling,
                       idmap=None if anyhit else ft.idmap)
     _check_device(prep)
-    return intersect_fused_plain(ft, prep, anyhit=anyhit,
-                                 backface_culling=backface_culling,
-                                 root_filter=root_filter,
-                                 collect_stats=collect_stats)
+    with span("rt.intersect.kernel"):
+        return intersect_fused_plain(ft, prep, anyhit=anyhit,
+                                     backface_culling=backface_culling,
+                                     root_filter=root_filter,
+                                     collect_stats=collect_stats)
 
 
 @torch.no_grad()

@@ -32,7 +32,8 @@ counts box tests (steps on real nodes, x use_ac) and triangle tests.
 thread a ray; `traverse_bvh_plain`, a torch loop over walk steps line
 for line after JAX's, for CPU tensors. Neither has a Pallas counterpart:
 the JAX package runs the walk as an XLA while loop. Its launches count in
-`KERNELS["bvh_closest"]`.
+`KERNELS["bvh_closest"]`. In a recorded trace (`utils.tracing`) each
+walk, kernel or plain version, is the span `rt.intersect.kernel`.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import torch
 from rendering_tpu_torch.ops.geometry import FLT_MAX
 from rendering_tpu_torch.ops.intersect import ray_triangle_r, slab_test
 from rendering_tpu_torch.utils import nvcc
+from rendering_tpu_torch.utils.tracing import span
 
 SOURCE = os.path.join(nvcc.CSRC, "bvh_walk.cu")
 # The plain walk reads any(active) from the device once every this many
@@ -143,7 +145,7 @@ def count_ac_nodes_kernel(node_min, node_max, skip, real_flag, ro, rd, *,
                              f"{tuple(x.shape)}")
     lib = _library()
     counts = torch.empty((r,), dtype=torch.int32, device=ro.device)
-    with torch.cuda.device(ro.device):
+    with span("rt.intersect.kernel"), torch.cuda.device(ro.device):
         stream = torch.cuda.current_stream(ro.device).cuda_stream
         rc = lib.bw_ac_walk(ro.data_ptr(), rd.data_ptr(),
                             node_min.data_ptr(), node_max.data_ptr(),
@@ -167,7 +169,8 @@ def count_ac_nodes(mesh, ro, rd, *, use_ac: bool = True):
                                      rd.contiguous(), use_ac=use_ac)
     if ro.device.type != "cpu":
         raise ValueError(f"no showAC walk for device {ro.device}")
-    return count_ac_nodes_plain(*nodes, ro, rd, use_ac=use_ac)[0]
+    with span("rt.intersect.kernel"):
+        return count_ac_nodes_plain(*nodes, ro, rd, use_ac=use_ac)[0]
 
 
 class TraversalResult(NamedTuple):
@@ -311,7 +314,7 @@ def traverse_bvh_kernel(mesh, ro, rd, t_limit=None, *,
     v = torch.empty((r,), dtype=torch.float32, device=dev)
     counters = torch.zeros((2,), dtype=torch.int64, device=dev)
     lib = _library()
-    with torch.cuda.device(dev):
+    with span("rt.intersect.kernel"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bw_bvh_closest(
             ro.data_ptr(), rd.data_ptr(),
@@ -340,4 +343,5 @@ def traverse_bvh(mesh, ro, rd, t_limit=None, *, backface_culling: bool = True,
             t_limit.contiguous() if t_limit is not None else None, **kw)
     if ro.device.type != "cpu":
         raise ValueError(f"no BVH walk for device {ro.device}")
-    return traverse_bvh_plain(mesh, ro, rd, t_limit, **kw)
+    with span("rt.intersect.kernel"):
+        return traverse_bvh_plain(mesh, ro, rd, t_limit, **kw)

@@ -28,6 +28,7 @@ from rendering_tpu_torch.render.pipeline import (
     render,
     render_scene,
 )
+from rendering_tpu_torch.utils.tracing import span
 
 
 def look_at_rotation(pos, target) -> np.ndarray:
@@ -65,11 +66,12 @@ def set_camera(scene, pos, rot_deg=None, *, look_at=None):
     if look_at is not None:
         rot_deg = look_at_rotation(pos, look_at)
     dev = scene.device
-    return dataclasses.replace(
-        scene,
-        cam_pos=torch.tensor(np.asarray(pos, np.float32), device=dev),
-        cam_rmat=torch.from_numpy(euler_matrix(rot_deg)).to(dev),
-    )
+    with span("rt.sync.camera"):
+        return dataclasses.replace(
+            scene,
+            cam_pos=torch.tensor(np.asarray(pos, np.float32), device=dev),
+            cam_rmat=torch.from_numpy(euler_matrix(rot_deg)).to(dev),
+        )
 
 
 def orbit_cameras(center, radius: float, n_frames: int, *,
@@ -150,7 +152,7 @@ def _pipelined(scene, cameras, *, mesh, ray_block, out_u8, depth):
             return render_scene_sharded(s, mesh, **kw)
 
     def dispatch(s):
-        with torch.no_grad():
+        with span("rt.render"), torch.no_grad():
             frame, aux = render_fn(s, ray_block=ray_block, out_u8=out_u8)
         if not out_u8:
             frame = frame.permute(1, 2, 0)
@@ -167,7 +169,8 @@ def _pipelined(scene, cameras, *, mesh, ray_block, out_u8, depth):
 
     def finish(s, host, dropped, done, aux):
         if done is not None:
-            done.synchronize()
+            with span("rt.sync.frame"):
+                done.synchronize()
         overflow = (st.enable_ssaa and not st.show_ac
                     and aux["ssaa_masked"] > cap)
         if overflow or float(dropped) > 0:

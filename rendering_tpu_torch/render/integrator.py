@@ -38,6 +38,14 @@ dense scan (`ops/bruteforce_mxu.py` with use_mxu_intersect, else
 (`ops/traversal.traverse_bvh`: the `bvh_closest` kernel on a card); their
 counters go into the stats whether or not collectStatistics is set, as
 JAX's do.
+
+In a recorded trace (`utils.tracing`) each bounce of `integrate` is the
+span `rt.integrator.bounce`, holding per ray block `rt.integrator.trace`
+(the closest hit), `rt.integrator.shade` (the rest of `bounce_block`)
+with `rt.integrator.shadow` (the occlusion queries) inside it, then the
+radiance scatter `rt.integrator.scatter` and the continuations' re-sort
+or compaction `rt.integrator.compact`. The counters `lanes` and
+`live_lanes` take each bounce block's lanes and those above min_weight.
 """
 
 from __future__ import annotations
@@ -87,6 +95,8 @@ from rendering_tpu_torch.ops.texture import (
 )
 from rendering_tpu_torch.ops.traversal import traverse_bvh
 from rendering_tpu_torch.parallel import collectives
+from rendering_tpu_torch.utils import tracing
+from rendering_tpu_torch.utils.tracing import span, traced
 
 # Rays per block of the bounce body (bounds every per-ray temporary):
 # 131072 rays = 256 kernel tiles per closest-hit launch.
@@ -281,6 +291,7 @@ def _fused_mesh_hits(scene, ro3, rd3, t_limit, stats):
     return cols
 
 
+@traced("rt.integrator.trace")
 def trace_closest(scene, ro3, rd3, *, t_limit=None):
     """Closest hit over all scene objects in scene order
     (Render::trace, src/scene.cpp:724-756). ro3/rd3: (3, Q).
@@ -343,6 +354,7 @@ def trace_closest(scene, ro3, rd3, *, t_limit=None):
     return Hit(t, obj, hit, tri, u, v, geo), stats
 
 
+@traced("rt.integrator.shadow")
 @torch.no_grad()
 def trace_occlusion(scene, ro3, rd3, dist):
     """Does any non-transparent object intersect strictly closer than
@@ -367,7 +379,8 @@ def trace_occlusion(scene, ro3, rd3, dist):
         mask = opaque(kind)
         if any(mask):
             t = fn(ro3, rd3, pos, prm)
-            keep = torch.tensor(mask, device=ro3.device)[:, None]
+            with span("rt.sync.occluder_mask"):
+                keep = torch.tensor(mask, device=ro3.device)[:, None]
             occluded = occluded | torch.any(keep & (t < dist[None, :]), dim=0)
     fts = scene.fused_shadow_itables
     if fts is not None and settings.use_pallas_intersect:
@@ -672,7 +685,6 @@ def bounce_block(scene, ro3, rd3, weight, active) -> BlockOut:
     x 0.8) and transparent ones (scene.cpp:892-941: the fresnel-weighted
     reflection and refraction, their origins biased by which side the ray
     came from)."""
-    st = scene.static
     stats = zero_stats()
     # Inactive lanes get t_limit = -1: the pre-pass and the kernel treat
     # them as resolved, so they cost no intersection work.
@@ -681,6 +693,15 @@ def bounce_block(scene, ro3, rd3, weight, active) -> BlockOut:
         t_limit=torch.where(active, FLT_MAX, -1.0),
     )
     add_stats(stats, t_stats)
+    with span("rt.integrator.shade"):
+        return _shade_block(scene, ro3, rd3, weight, active, hit, stats)
+
+
+def _shade_block(scene, ro3, rd3, weight, active, hit, stats) -> BlockOut:
+    """The rest of `bounce_block` after the closest hit: surface data,
+    colours and maps, direct lighting, the material combine and the
+    continuations."""
+    st = scene.static
     hit_m = hit.hit & active
     miss_m = (~hit.hit) & active
 
@@ -797,7 +818,7 @@ def _scatter(accum3, pix, values3):
     """accum3 (3, n_pixels) with values3 (3, Q) added at columns pix (Q,),
     duplicates summed in lane order: index_add, deterministic on CUDA
     too, so repeat frames and train steps are bit-equal."""
-    with deterministic_algorithms():
+    with span("rt.integrator.scatter"), deterministic_algorithms():
         return accum3.index_add(1, pix, values3)
 
 
@@ -821,8 +842,11 @@ def _bounce(scene, queue: Queue, accum3, stats, *, slot_accum: bool):
     outs = []
     for i in range(nb):
         w = queue.weight[i]
+        active = w > min_w
+        tracing.count("lanes", b)
+        tracing.count("live_lanes", active)
         out = bounce_block(scene, queue.ro3[i].contiguous(),
-                           queue.rd3[i].contiguous(), w, w > min_w)
+                           queue.rd3[i].contiguous(), w, active)
         add_stats(stats, out.stats)
         outs.append(out)
     contrib3 = torch.cat([o.contrib3 for o in outs], dim=1)
@@ -833,6 +857,16 @@ def _bounce(scene, queue: Queue, accum3, stats, *, slot_accum: bool):
         accum3 = _scatter(accum3, pix, contrib3)
     if not st.any_bouncing:
         return None, accum3
+    with span("rt.integrator.compact"):
+        return _continuations(st, outs, queue, pix, stats,
+                              slot_accum=slot_accum), accum3
+
+
+def _continuations(st, outs, queue: Queue, pix, stats, *,
+                   slot_accum: bool) -> Queue:
+    """The next queue from the blocks' continuations (`_bounce`)."""
+    min_w = st.settings.min_weight
+    nb, _, b = queue.ro3.shape
 
     def cat(field):
         return torch.cat([getattr(o, field) for o in outs], dim=-1)
@@ -842,20 +876,20 @@ def _bounce(scene, queue: Queue, accum3, stats, *, slot_accum: bool):
         if slot_accum:
             # The single continuation in place: slots stay pixel-aligned.
             return Queue(_blocks3(c_ro, nb, b), _blocks3(c_rd, nb, b),
-                         c_w.reshape(nb, b), queue.pix), accum3
+                         c_w.reshape(nb, b), queue.pix)
         key = torch.where(c_w > min_w, morton_key_r(c_ro), MORTON_INACTIVE)
         order = torch.argsort(key, stable=True)
         return Queue(_blocks3(c_ro[:, order], nb, b),
                      _blocks3(c_rd[:, order], nb, b),
                      c_w[order].reshape(nb, b),
-                     pix[order].reshape(nb, b)), accum3
+                     pix[order].reshape(nb, b))
     k_ro, k_rd, k_w, k_pix = _compact_children(
         torch.cat([c_ro, cat("c2_ro3")], dim=1),
         torch.cat([c_rd, cat("c2_rd3")], dim=1),
         torch.cat([c_w, cat("c2_w")]),
-        torch.cat([pix, pix]), q, min_w, stats)
+        torch.cat([pix, pix]), nb * b, min_w, stats)
     return Queue(_blocks3(k_ro, nb, b), _blocks3(k_rd, nb, b),
-                 k_w.reshape(nb, b), k_pix.reshape(nb, b)), accum3
+                 k_w.reshape(nb, b), k_pix.reshape(nb, b))
 
 
 def _compact_children(cand_ro, cand_rd, cand_w, cand_pix, capacity: int,
@@ -871,7 +905,8 @@ def _compact_children(cand_ro, cand_rd, cand_w, cand_pix, capacity: int,
         worder = torch.argsort(torch.where(active, -cand_w, math.inf),
                                stable=True)
         keep = torch.zeros_like(active)
-        keep[worder[:capacity]] = True
+        with span("rt.sync.compact_keep"):  # True is copied from the host
+            keep[worder[:capacity]] = True
         key = torch.where(keep & active, morton_key_r(cand_ro),
                           MORTON_INACTIVE)
         order = torch.argsort(key, stable=True)[:capacity]
@@ -922,8 +957,9 @@ def integrate(scene, ro, rd, pix, weight, n_pixels: int, *,
         )
     accum3 = None if out_slots else torch.zeros((3, n_pixels), device=dev)
     for _ in range(n_bounces):
-        queue, accum3 = _bounce(scene, queue, accum3, stats,
-                                slot_accum=out_slots)
+        with span("rt.integrator.bounce"):
+            queue, accum3 = _bounce(scene, queue, accum3, stats,
+                                    slot_accum=out_slots)
     if st.any_bouncing:
         # Depth guard: the surviving continuations return the skybox.
         rd3, w = _flat3(queue.rd3), queue.weight.reshape(-1)

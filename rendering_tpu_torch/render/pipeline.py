@@ -32,6 +32,7 @@ strips and the SSAA pass render sharded over the ranks
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -61,7 +62,9 @@ from rendering_tpu_torch.render.raygen import (
     ssaa_subsample_rays,
     tile_dims,
 )
+from rendering_tpu_torch.utils import tracing
 from rendering_tpu_torch.utils.timer import Timer
+from rendering_tpu_torch.utils.tracing import span, traced
 
 
 def quantize_u8(frame3):
@@ -173,8 +176,12 @@ def _ssaa_pass(scene, frame3, *, capacity: int, ray_block=DEFAULT_RAY_BLOCK,
     flat = mask.reshape(-1)
     # torch.nonzero syncs with the host; the overflow check reads the
     # mask size on the host anyway.
-    idx = torch.nonzero(flat).reshape(-1)[:capacity].to(torch.int32)
-    n_masked = int(flat.sum())
+    with span("rt.sync.ssaa_queue"):
+        idx = torch.nonzero(flat).reshape(-1)[:capacity].to(torch.int32)
+    with span("rt.sync.ssaa_masked"):
+        n_masked = int(flat.sum())
+    tracing.count("ssaa_lanes", 4 * capacity)
+    tracing.count("ssaa_masked", 4 * idx.numel())
     valid = torch.arange(capacity, device=frame3.device) < idx.numel()
     idx_c = torch.nn.functional.pad(idx, (0, capacity - idx.numel()),
                                     value=w * h - 1)
@@ -183,7 +190,7 @@ def _ssaa_pass(scene, frame3, *, capacity: int, ray_block=DEFAULT_RAY_BLOCK,
         # The four weighted subsamples of a pixel scattered one by one
         # (JAX's .at[:, pix].add branch), not summed per slot.
         colors3 = shade_normals(scene, ro, rd, ray_block=ray_block)
-        with deterministic_algorithms():
+        with span("rt.integrator.scatter"), deterministic_algorithms():
             accum3 = torch.zeros((3, w * h), device=frame3.device).index_add(
                 1, pix.long(), weight[None, :] * colors3)
         stats = zero_stats()
@@ -198,7 +205,7 @@ def _ssaa_pass(scene, frame3, *, capacity: int, ray_block=DEFAULT_RAY_BLOCK,
         # four sum in the JAX package's order. Fill lanes add exact zeros.
         s = slots3.reshape(3, 4, capacity)
         summed3 = ((s[:, 0] + s[:, 1]) + s[:, 2]) + s[:, 3]
-        with deterministic_algorithms():
+        with span("rt.integrator.scatter"), deterministic_algorithms():
             accum3 = torch.zeros((3, w * h), device=frame3.device).index_add(
                 1, idx_c.long(), summed3)
     frame3 = torch.where(mask[None], accum3.reshape(3, h, w), frame3)
@@ -248,14 +255,16 @@ def render_scene(scene, ray_block: int = DEFAULT_RAY_BLOCK,
         return (quantize_u8(frame3) if out_u8 else frame3), {
             "stats": zero_stats(), "ssaa_masked": 0}
     scene = derive_mesh_tables(scene)
-    frame3, stats = _primary_pass(scene, ray_block=ray_block,
-                                  queue_headroom=queue_headroom)
+    with span("rt.pipeline.primary"):
+        frame3, stats = _primary_pass(scene, ray_block=ray_block,
+                                      queue_headroom=queue_headroom)
     n_masked = 0
     if settings.enable_ssaa:
-        frame3, n_masked, s2 = _ssaa_pass(
-            scene, frame3, ray_block=ray_block,
-            capacity=ssaa_capacity or default_ssaa_capacity(settings),
-            queue_headroom=queue_headroom)
+        with span("rt.pipeline.ssaa"):
+            frame3, n_masked, s2 = _ssaa_pass(
+                scene, frame3, ray_block=ray_block,
+                capacity=ssaa_capacity or default_ssaa_capacity(settings),
+                queue_headroom=queue_headroom)
         add_stats(stats, s2)
     aux = {"stats": stats, "ssaa_masked": n_masked}
     return (quantize_u8(frame3) if out_u8 else frame3), aux
@@ -281,17 +290,20 @@ def escalating_render(render_fn, st, *, cap_pad: int = 1):
     frame). Prints the drop warning of the last attempt."""
     ssaa_cap = None
     headroom = 1
+    redo = False
     while True:
-        frame3, aux = render_fn(ssaa_cap, headroom)
+        with span("rt.pipeline.redo") if redo else contextlib.nullcontext():
+            frame3, aux = render_fn(ssaa_cap, headroom)
         redo = False
-        n_masked = int(aux["ssaa_masked"])
+        with span("rt.sync.redo_check"):
+            n_masked = int(aux["ssaa_masked"])
+            dropped = float(aux["stats"].get("paths_dropped", 0))
         eff_cap = -(-(ssaa_cap or default_ssaa_capacity(st))
                     // cap_pad) * cap_pad
         if st.enable_ssaa and not st.show_ac and n_masked > eff_cap:
             ssaa_cap = raised_ssaa_capacity(n_masked, st)
             redo = True
-        if (float(aux["stats"].get("paths_dropped", 0)) > 0
-                and headroom < MAX_QUEUE_HEADROOM):
+        if dropped > 0 and headroom < MAX_QUEUE_HEADROOM:
             headroom *= 2
             redo = True
         if not redo:
@@ -304,18 +316,21 @@ def warn_dropped_paths(stats) -> None:
     """Print the transparent-queue drop warning when a render's stats
     report compacted-away continuation paths (drops must stay 0 for
     parity with the reference's unbounded recursion)."""
-    dropped = float(stats.get("paths_dropped", 0))
+    with span("rt.sync.dropped"):
+        dropped = float(stats.get("paths_dropped", 0))
     if dropped:
         print(f"warning: {dropped:.0f} transparent continuation paths were "
               f"dropped by queue compaction; output deviates from the "
               f"reference's unbounded recursion")
 
 
+@traced("rt.render")
 def render(scene, ray_block: int = DEFAULT_RAY_BLOCK, out_u8: bool = False):
     """Host-facing render: ((H, W, 3) numpy frame, aux). With out_u8 the
     frame is the BMP writer's u8 codes, else f32 in [0, 1+]. A frame
     whose SSAA mask outgrew the queue, or whose transparent queue dropped
-    paths, is rendered again with a larger queue (`escalating_render`)."""
+    paths, is rendered again with a larger queue (`escalating_render`).
+    In a recorded trace the call is the span `rt.render`."""
     with torch.no_grad():
         frame, aux = escalating_render(
             lambda cap, headroom: render_scene(
@@ -325,7 +340,7 @@ def render(scene, ray_block: int = DEFAULT_RAY_BLOCK, out_u8: bool = False):
         )
     if not out_u8:
         frame = frame.permute(1, 2, 0)
-    return frame.cpu().numpy(), aux
+    return _pull(frame), aux
 
 
 # ---- strip renders: progress output and resumable checkpoints ----------
@@ -333,15 +348,24 @@ def render(scene, ray_block: int = DEFAULT_RAY_BLOCK, out_u8: bool = False):
 
 def _host(v):
     """A counter as a host number (a tensor read from the device)."""
-    return v.item() if isinstance(v, torch.Tensor) else v
+    if not isinstance(v, torch.Tensor):
+        return v
+    with span("rt.sync.counter"):
+        return v.item()
+
+
+def _pull(frame):
+    """The frame as a numpy array on the host (a blocking copy)."""
+    with span("rt.pipeline.pull"), span("rt.sync.pull"):
+        return frame.cpu().numpy()
 
 
 def _to_numpy_frame(frame3, out_u8: bool):
     """The (H, W, 3) host frame: u8 codes quantized on the device, or
     f32."""
     if out_u8:
-        return quantize_u8(frame3).cpu().numpy()
-    return frame3.permute(1, 2, 0).cpu().numpy()
+        return _pull(quantize_u8(frame3))
+    return _pull(frame3.permute(1, 2, 0))
 
 
 def _render_strip(scene, *, y0: int, rows: int, ray_block: int,
@@ -398,16 +422,18 @@ def _finish_strips(scene, accum3, stats_acc: dict, ssaa_fn, *,
         dev = frame3.device
         if show:
             # Only for the print: the SSAA pass computes its own mask.
-            t_sobel = Timer("Sobel filter", True, device=dev)
+            t_sobel = Timer("Sobel filter", True, device=dev,
+                            span="rt.pipeline.sobel")
             sobel_mask(frame3)
             t_sobel.stop()
-        t_msaa = Timer("MSAA", show, device=dev)
+        t_msaa = Timer("MSAA", show, device=dev, span="rt.pipeline.ssaa")
         capacity = default_ssaa_capacity(st)
         base3 = frame3
         frame3, n_masked, s2 = ssaa_fn(scene, base3, capacity)
         if n_masked > capacity:  # escalate once: exact refinement
             capacity = raised_ssaa_capacity(n_masked, st)
-            frame3, n_masked, s2 = ssaa_fn(scene, base3, capacity)
+            with span("rt.pipeline.redo"):
+                frame3, n_masked, s2 = ssaa_fn(scene, base3, capacity)
         t_msaa.stop()
         for k in stats_acc:
             stats_acc[k] += _host(s2[k])
@@ -487,7 +513,8 @@ def _strips(prepared, strip_fn, *, strip_rows: int, done=None):
             continue
         y0 = s * strip_rows
         rows = min(strip_rows, h - y0)
-        part, s_stats = strip_fn(prepared, y0=y0, rows=rows)
+        with span("rt.pipeline.strip"):
+            part, s_stats = strip_fn(prepared, y0=y0, rows=rows)
         launched = (s, y0, rows, part, s_stats, _strip_done(part.device))
         if pending is not None:
             yield pending
@@ -507,7 +534,8 @@ def _strip_frame(prepared, accum3, stats_acc: dict, ssaa_fn, *,
                                       timers=timers)
     if (stats_acc["paths_dropped"] > 0
             and queue_headroom < MAX_QUEUE_HEADROOM):
-        return redo(queue_headroom * 2)
+        with span("rt.pipeline.redo"):
+            return redo(queue_headroom * 2)
     warn_dropped_paths(stats_acc)
     return _to_numpy_frame(frame3, out_u8), {"stats": stats_acc,
                                              "ssaa_masked": n_masked}
@@ -535,6 +563,7 @@ def _delegate_show_ac(scene, ray_block: int, out_u8: bool, mesh=None):
         "ssaa_masked": aux["ssaa_masked"]}
 
 
+@traced("rt.render")
 @torch.no_grad()
 def render_with_progress(scene, *, strip_rows: int = 128,
                          ray_block: int = DEFAULT_RAY_BLOCK, mesh=None,
@@ -555,7 +584,7 @@ def render_with_progress(scene, *, strip_rows: int = 128,
     up to the tiles the kernels see (a strip's 512-ray tiles are row
     runs, not screen rects) and f32 summation order. `_now` and `_print`
     replace the clock and the print (tests). Returns ((H, W, 3) numpy
-    frame, aux)."""
+    frame, aux). In a recorded trace the call is the span `rt.render`."""
     now = _now or time.perf_counter
     main = _is_main(mesh)
     if not main:
@@ -579,7 +608,8 @@ def render_with_progress(scene, *, strip_rows: int = 128,
             prepared, strip_fn, strip_rows=strip_rows):
         parts.append(part)
         if ev is not None:
-            ev.synchronize()  # strip k has finished
+            with span("rt.sync.strip"):
+                ev.synchronize()  # strip k has finished
         for k in stats_acc:
             stats_acc[k] += _host(s_stats[k])
         done_px += rows * w
@@ -632,6 +662,7 @@ def _scene_fingerprint(scene) -> int:
     return int(np.frombuffer(h.digest()[:8], dtype=np.int64)[0])
 
 
+@traced("rt.render")
 @torch.no_grad()
 def render_resumable(scene, checkpoint_path: str, *, strip_rows: int = 128,
                      resume: bool = True, ray_block: int = DEFAULT_RAY_BLOCK,
@@ -651,7 +682,8 @@ def render_resumable(scene, checkpoint_path: str, *, strip_rows: int = 128,
     whole-frame render. With `mesh` every strip and the SSAA pass render
     sharded over it; every rank reads the checkpoint, the strips to skip
     are those that every rank read as finished (a MIN over the ranks),
-    and only rank 0 writes. Returns ((H, W, 3) numpy frame, aux)."""
+    and only rank 0 writes. Returns ((H, W, 3) numpy frame, aux). In a
+    recorded trace the call is the span `rt.render`."""
     st = scene.static.settings
     if st.show_ac:
         return _delegate_show_ac(scene, ray_block, out_u8, mesh)
@@ -661,7 +693,8 @@ def render_resumable(scene, checkpoint_path: str, *, strip_rows: int = 128,
     accum3 = np.zeros((3, h * w), np.float32)
     done = np.zeros((n_strips,), bool)
     stats_acc = {k: 0.0 for k in zero_stats()}
-    fp = _scene_fingerprint(scene)
+    with span("rt.sync.fingerprint"):
+        fp = _scene_fingerprint(scene)
     if resume and os.path.exists(checkpoint_path):
         _step, _p, _o, frame_ck, mask_ck = load_checkpoint(checkpoint_path,
                                                            {}, {})
@@ -695,7 +728,8 @@ def render_resumable(scene, checkpoint_path: str, *, strip_rows: int = 128,
 
     for s, y0, rows, part, s_stats, _ev in _strips(
             prepared, strip_fn, strip_rows=strip_rows, done=done):
-        accum3[:, y0 * w:(y0 + rows) * w] = part.cpu().numpy()
+        with span("rt.sync.strip"):
+            accum3[:, y0 * w:(y0 + rows) * w] = part.cpu().numpy()
         for k in stats_acc:
             stats_acc[k] += _host(s_stats[k])
         done[s] = True
@@ -706,8 +740,10 @@ def render_resumable(scene, checkpoint_path: str, *, strip_rows: int = 128,
                                   "queue_headroom": queue_headroom,
                                   **stats_acc})
     # The redo starts from scratch: the checkpointed strips dropped paths.
+    with span("rt.sync.upload"):
+        frame_dev = torch.from_numpy(accum3).to(scene.device)
     return _strip_frame(
-        prepared, torch.from_numpy(accum3).to(scene.device), stats_acc,
+        prepared, frame_dev, stats_acc,
         ssaa_fn, timers=False, queue_headroom=queue_headroom, out_u8=out_u8,
         redo=lambda hr: render_resumable(
             scene, checkpoint_path, strip_rows=strip_rows, resume=False,

@@ -5,7 +5,10 @@ The reference's only profiling is its RAII phase timers
 (include/timer.h:8-40), which `utils.timer` copies. This module records
 what ran underneath: the PyTorch operators on the host and, on a card,
 every kernel with its device time (the hand-written intersection
-kernels, launched through ctypes, among them: CUPTI sees each launch).
+kernels, launched through ctypes, among them: CUPTI sees each launch),
+inside the port's own stages (`utils.tracing` spans, `rt.*`), and the
+port's counters of the capture (`utils.tracing.counters`) as JSON beside
+the trace.
 
 Usage:
     with trace("/tmp/rt_trace"):
@@ -26,8 +29,10 @@ import time
 import torch
 
 from rendering_tpu_torch.device import resolve_device
+from rendering_tpu_torch.utils import tracing
 
 TRACE_SUFFIX = ".pt.trace.json"
+COUNTERS_SUFFIX = ".counters.json"
 
 
 @contextlib.contextmanager
@@ -37,18 +42,23 @@ def trace(logdir: str, device=None):
     `device` is a card (the CUDA device unless `device` says otherwise).
     The card is synchronized before the capture stops, so no queued work
     escapes it; the trace is written as Chrome trace JSON,
-    `<logdir>/trace_<ns>_<pid>.pt.trace.json`. Yields the profiler."""
+    `<logdir>/trace_<ns>_<pid>.pt.trace.json`, and the capture's counters
+    (`tracing.counters()`, from zero at its start) beside it as
+    `trace_<ns>_<pid>.counters.json`. Yields the profiler."""
     device = resolve_device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    tracing.reset()
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-    prof.export_chrome_trace(os.path.join(
-        logdir, f"trace_{time.time_ns()}_{os.getpid()}{TRACE_SUFFIX}"))
+    stem = os.path.join(logdir, f"trace_{time.time_ns()}_{os.getpid()}")
+    prof.export_chrome_trace(stem + TRACE_SUFFIX)
+    with open(stem + COUNTERS_SUFFIX, "w") as fh:
+        json.dump(tracing.counters(), fh, indent=1, sort_keys=True)
 
 
 def find_traces(logdir: str) -> list[str]:

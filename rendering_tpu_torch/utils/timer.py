@@ -7,6 +7,9 @@ clock, so the phase's queued kernels are inside its time. It prints
 `options::enableOutput`).
 
 `phase_timer` is the context-manager form, recording into a dict.
+Given `span`, both mark their phase as that stage span of a recorded
+trace (`utils.tracing`); a timer around a function that opens its own
+span names none. The synchronize is the span `rt.sync.timer`.
 
 `mean_ms` times a function over repeats: CUDA events on a card, the host
 clock on the CPU. Every time the port's tools and `chip_smoke.py` report
@@ -20,23 +23,31 @@ import time
 
 import torch
 
+from rendering_tpu_torch.utils import tracing
+
 
 class Timer:
     def __init__(self, name: str = "Unnamed timer:", enable_output: bool = True,
-                 device=None):
+                 device=None, span: str | None = None):
         self.name = name
         self.enable_output = enable_output
         self.device = torch.device(device) if device is not None else None
         self.start = time.perf_counter()
         self.elapsed_ms: float | None = None
         self._running = True
+        self._span = tracing.span(span) if span else None
+        if self._span is not None:
+            self._span.__enter__()
 
     def stop(self) -> float:
         if not self._running:
             return self.elapsed_ms or 0.0
         if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with tracing.span("rt.sync.timer"):
+                torch.cuda.synchronize(self.device)
         self._running = False
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
         self.elapsed_ms = (time.perf_counter() - self.start) * 1000.0
         if self.enable_output:
             print(f"{self.name:<18}{self.elapsed_ms:.0f} ms")
@@ -45,13 +56,14 @@ class Timer:
 
 @contextlib.contextmanager
 def phase_timer(name: str, enable_output: bool = True,
-                result: dict | None = None, device=None):
+                result: dict | None = None, device=None,
+                span: str | None = None):
     """Time the block with a `Timer` (JAX `utils.timer.phase_timer`): on a
     CUDA `device` the timer synchronizes it before reading the clock, as
     the JAX timer blocks on its box["sync"] outputs, so work the block
     queued is inside the time. Records the milliseconds in result[name]
     when a dict is given, also when the block raises. Yields the timer."""
-    t = Timer(name, enable_output, device=device)
+    t = Timer(name, enable_output, device=device, span=span)
     try:
         yield t
     finally:
