@@ -290,6 +290,18 @@ The intersection oracles without the tile-walk kernels
     the middle block's primary hits through the bilinear form twice under
     deterministic algorithms, bit-equal.
 
+The integrator's index accumulation (csrc/index_accumulate.cu: the
+radiance scatter into the frame and the per-object gathers' backward):
+
+40. tests/scenes/t01_simple_shapes.scene at 800x600, the benchmark's
+    simpleshapes size: a frame with SSAA and a train step of the light's
+    intensity and obj_color, each twice and bit-equal, every call of the
+    accumulation recorded (calls a frame and a step); on the frame's
+    largest scatter (524,288 lanes x 3) and the step's per-object gather
+    backward (131,072 lanes into 5 rows): the kernel bit-equal to its
+    plain version, its ms a launch, the plain version's, the library's
+    deterministic `index_add` (a yardstick only) and the bound in bytes.
+
 Every query a phase holds to its plain version (phases 3, 7, 11, 12, 13,
 14, 16, 23) is also timed against the tile walk its kernel replaced, in
 turns (tile, new, new, tile; `ms` is the new walk's, `tile_walk_ms` the
@@ -497,6 +509,11 @@ AC_SLAB_OPS = 3 * 6 + 4 + 2 * 2
 AC_SOURCE = "rendering_tpu_torch/csrc/bvh_walk.cu"
 # No Pallas kernel: the JAX package's walk is this XLA while loop.
 AC_REPLACES = "rendering_tpu/ops/traversal.py:161"
+ACCUM_SOURCE = "rendering_tpu_torch/csrc/index_accumulate.cu"
+ACCUM_REPLACES = ("rendering_tpu/render/integrator.py:964, XLA's "
+                  "scatter-add `.at[:, pix].add`")
+ACCUM_WH = (800, 600)    # the benchmark's simpleshapes cells
+MEASURED_HBM_RATE = 2.88e12  # bytes/s, the HBM probe's on an H100
 # The inverse-rendering extras (phases 28-31): the demos' defaults.
 PAINT_LR = 0.05          # examples/texture_paint_demo_torch.py --lr
 PAINT_LOSS_STEPS = 5
@@ -3500,6 +3517,117 @@ def dense_multimesh_phase(ci, card_line) -> dict:
     return out
 
 
+def accumulate_bound_ms(call) -> float:
+    """The index accumulation's least time at MEASURED_HBM_RATE: the ids
+    read, the sorted keys (int32) and permutation (int64) written and
+    read once, the values read, the accumulator read and written."""
+    accum, idx, values = call
+    n_ch, n = accum.shape
+    q = idx.shape[0]
+    moved = (q * idx.element_size() + 2 * q * (4 + 8) + n_ch * q * 4
+             + 2 * n_ch * n * 4)
+    return moved / MEASURED_HBM_RATE * 1e3
+
+
+def index_accumulate_phase(card_line) -> dict:
+    """Phase 40: the integrator's index accumulation
+    (csrc/index_accumulate.cu, `ops.accumulate`) on
+    tests/scenes/t01_simple_shapes.scene at 800x600 (the benchmark's
+    simpleshapes cells): one frame with SSAA (11 bounces) and one train
+    step of light 0's intensity and obj_color (SSAA off), each run twice
+    and bit-equal, recording every call: the calls a frame and a step.
+    On the frame's largest scatter (524,288 lanes x 3 into the pixels)
+    and the step's per-object gather backward (131,072 lanes into 5
+    rows): the kernel bit-equal to its plain version, ms a launch, the
+    plain version's ms and the library's deterministic `index_add`
+    (PyTorch's sort-based indexing_backward kernel, a yardstick only),
+    and the bound in bytes."""
+    from rendering_tpu_torch.device import deterministic_algorithms
+    from rendering_tpu_torch.diff.inverse import (
+        extract_params,
+        make_train_step,
+    )
+    from rendering_tpu_torch.models.scene import load_scene
+    from rendering_tpu_torch.models.settings import RenderSettings
+    from rendering_tpu_torch.ops import accumulate
+    from rendering_tpu_torch.render import integrator, pipeline
+
+    base = load_scene(os.path.join(TESTS, "scenes", "t01_simple_shapes.scene"),
+                      RenderSettings(), device="cuda")
+    w, h = ACCUM_WH
+
+    def sized(**kw):
+        st = base.static
+        return dataclasses.replace(base, static=dataclasses.replace(
+            st, settings=st.settings.replace(width=w, height=h, **kw)))
+
+    frame_scene = sized(enable_ssaa=True)
+    calls: list = []
+    frames = []
+    for _ in range(2):
+        calls.clear()
+        with torch.no_grad(), recorded(integrator, "index_accumulate", calls), \
+                recorded(pipeline, "index_accumulate", calls):
+            frames.append(pipeline.render_scene(frame_scene)[0])
+    frame_calls = [c["args"] for c in calls]
+    if not torch.equal(frames[0].view(torch.int32),
+                       frames[1].view(torch.int32)):
+        raise AssertionError("repeat simple_shapes frames differ")
+
+    scene = sized(enable_ssaa=False)
+    paths = (("lights", 0, "intensity"), ("obj_color",))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    target = torch.rand((3, h, w), generator=gen, device="cuda")
+    init, step_fn = make_train_step(paths)
+    steps = []
+    for _ in range(2):
+        calls.clear()
+        params = extract_params(scene, paths)
+        with recorded(integrator, "index_accumulate", calls), \
+                recorded(accumulate, "index_accumulate", calls):
+            params, _, loss = step_fn(params, init(params), scene, target)
+        torch.cuda.synchronize()
+        steps.append([loss] + [t for v in params.values()
+                               for t in (v.detach().clone(), v.grad.clone())])
+    step_calls = [c["args"] for c in calls]
+    if not all(torch.equal(a, b) for a, b in zip(*steps)):
+        raise AssertionError("repeat simple_shapes train steps differ")
+
+    # The per-object gathers' backward: the calls into a few object rows.
+    backward = [c for c in step_calls if c[0].shape[1] == len(
+        base.static.obj_kinds)]
+    kept = {"frame_scatter": max(frame_calls, key=lambda c: c[1].shape[0]),
+            "step_gather_backward": backward[0]}
+    rows = {}
+    for name, (accum, idx, values) in kept.items():
+        idx, values = idx.contiguous(), values.contiguous()
+        k = accumulate.index_accumulate(accum, idx, values)
+        p = accumulate.index_accumulate_plain(accum, idx, values)
+        if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+            raise AssertionError(f"{name}: the kernel differs from its plain "
+                                 f"version")
+        with torch.no_grad():
+            ms = mean_ms(lambda: accumulate.index_accumulate(
+                accum, idx, values), reps=20)
+            plain_ms = mean_ms(lambda: accumulate.index_accumulate_plain(
+                accum, idx, values), reps=3)
+            with deterministic_algorithms():
+                library_ms = mean_ms(lambda: accum.index_add(1, idx, values),
+                                     reps=3)
+        rows[name] = {
+            "lanes": idx.shape[0], "channels": accum.shape[0],
+            "columns": accum.shape[1], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": accumulate_bound_ms((accum, idx, values))}
+    out = {"wh": [w, h], "frame_launches": len(frame_calls),
+           "step_launches": len(step_calls),
+           "step_gather_backward_launches": len(backward),
+           "repeat_bit_equal": True, "calls": rows}
+    print(f"index accumulation on simple_shapes {w}x{h}: {json.dumps(out)} "
+          f"on {card_line}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3510,6 +3638,7 @@ def main() -> int:
         build_tiny_scene,
     )
     from rendering_tpu_torch import native
+    from rendering_tpu_torch.ops import accumulate
     from rendering_tpu_torch.ops import cuda_intersect as ci
     from rendering_tpu_torch.ops import microbench as mb
     from rendering_tpu_torch.ops import traversal
@@ -3536,7 +3665,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor() as pool:
         built = list(pool.map(nvcc.build_library,
                               (ci.SOURCE, mb.SOURCE, traversal.SOURCE,
-                               native.SOURCE)))
+                               native.SOURCE, accumulate.SOURCE)))
     if native.get_lib() is None:
         raise AssertionError("the host runtime did not load")
     for path, log in built:
@@ -4075,6 +4204,8 @@ def main() -> int:
     dense = dense_multimesh_phase(ci, card_line)
     torch.cuda.empty_cache()
     lap("39 dense multimesh")
+    accum = index_accumulate_phase(card_line)
+    lap("40 index accumulation")
 
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
@@ -4133,6 +4264,11 @@ def main() -> int:
                  "replaces": AC_REPLACES, **ac_row, "library_ms": None})
     rows.append({"name": "bvh_closest", "route": "cuda", "source": AC_SOURCE,
                  "replaces": BVH_REPLACES, **bvh_row, "library_ms": None})
+    rows.append({"name": "index_accumulate", "route": "cuda",
+                 "source": ACCUM_SOURCE, "replaces": ACCUM_REPLACES,
+                 "launches": {"frame": accum["frame_launches"],
+                              "step": accum["step_launches"]},
+                 **accum["calls"]})
 
     print(json.dumps({
         "card": card_line,
@@ -4161,6 +4297,7 @@ def main() -> int:
         "texture_paint": paint, "camera_pose": pose, "turntable": turntable,
         "trace": traced, "multidevice": md,
         "bvh_flagship": bvh, "dense_multimesh": dense,
+        "index_accumulate": accum,
         "intersect_sass": walk_sass,
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
                    "k9_ab": kprobe["ab"], "k9_sass": kprobe["sass"],

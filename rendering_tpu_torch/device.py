@@ -1,6 +1,6 @@
 """Device selection shared by the port's entry points, the card's name
 and power limit for its measuring tools, and the deterministic-algorithms
-mode of its train step and SSAA scatter."""
+mode of its train step."""
 
 from __future__ import annotations
 
@@ -41,8 +41,11 @@ def describe_card() -> str:
 def deterministic_algorithms():
     """torch.use_deterministic_algorithms(True) for the block, then the
     previous mode: on CUDA, an op whose backward may accumulate with
-    atomics (the gathers vgeoT[:, idx] and the per-object tables) takes
-    its deterministic kernel or raises. The mode's other effect, filling
+    atomics (the gathers vgeoT[:, idx], the texture and skybox gathers)
+    takes its deterministic kernel or raises. The per-object tables'
+    gathers and the radiance scatters need no mode: they accumulate
+    through `ops.accumulate`'s kernel, whose order of summation follows
+    from the ids alone. The mode's other effect, filling
     every new tensor with NaN (torch.utils.deterministic.
     fill_uninitialized_memory), is off for the block: it guards against
     reading memory before writing it and decides no bit of a result, and

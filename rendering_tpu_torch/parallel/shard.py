@@ -33,7 +33,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from rendering_tpu_torch.device import deterministic_algorithms
+from rendering_tpu_torch.ops.accumulate import index_accumulate
 from rendering_tpu_torch.ops.sobel import sobel_mask
 from rendering_tpu_torch.ops.traversal import count_ac_nodes
 from rendering_tpu_torch.parallel import collectives
@@ -247,8 +247,7 @@ def _ssaa_sharded(scene, frame3, mesh, *, capacity, ray_block,
     zeros = torch.zeros((3, w * h), device=frame3.device)
     if st.settings.show_normals:
         colors3 = shade_normals(scene, ro, rd, ray_block=ray_block)
-        with deterministic_algorithms():
-            accum3 = zeros.index_add(1, pix.long(), weight[None, :] * colors3)
+        accum3 = index_accumulate(zeros, pix, weight[None, :] * colors3)
         stats = zero_stats()
     elif st.any_bouncing:
         accum3, stats = integrate(scene, ro, rd, pix, weight, w * h,
@@ -261,8 +260,7 @@ def _ssaa_sharded(scene, frame3, mesh, *, capacity, ray_block,
                                   ray_block=ray_block, out_slots=True)
         s = slots3.reshape(3, 4, nloc)
         summed3 = ((s[:, 0] + s[:, 1]) + s[:, 2]) + s[:, 3]
-        with deterministic_algorithms():
-            accum3 = zeros.index_add(1, idx_l.long(), summed3)
+        accum3 = index_accumulate(zeros, idx_l, summed3)
     accum3 = collectives.sum_replicated(comm, accum3)
     stats = collectives.all_reduce_stats(comm, stats)
     frame3 = torch.where(mask[None], accum3.reshape(3, h, w), frame3)

@@ -45,7 +45,8 @@ span `rt.integrator.bounce`, holding per ray block `rt.integrator.trace`
 with `rt.integrator.shadow` (the occlusion queries) inside it, then the
 radiance scatter `rt.integrator.scatter` and the continuations' re-sort
 or compaction `rt.integrator.compact`. The counters `lanes` and
-`live_lanes` take each bounce block's lanes and those above min_weight.
+`live_lanes` take each bounce block's lanes and those above min_weight;
+the scatters' lanes count in `accum_lanes` (`ops.accumulate`).
 """
 
 from __future__ import annotations
@@ -55,7 +56,6 @@ from typing import NamedTuple
 
 import torch
 
-from rendering_tpu_torch.device import deterministic_algorithms
 from rendering_tpu_torch.models.scene import (
     KIND_MESH,
     KIND_PLANE,
@@ -66,6 +66,7 @@ from rendering_tpu_torch.models.scene import (
     MAT_TRANSPARENT,
 )
 from rendering_tpu_torch.ops import cuda_intersect
+from rendering_tpu_torch.ops.accumulate import gather_rows, index_accumulate
 from rendering_tpu_torch.ops.bruteforce import bruteforce_mesh
 from rendering_tpu_torch.ops.bruteforce_mxu import bruteforce_mesh_mxu
 from rendering_tpu_torch.ops.geometry import (
@@ -169,17 +170,19 @@ def _query_flags(settings, clipped: bool) -> dict:
 
 
 def _per_obj(table, obj, n_objects: int):
-    """table[obj], broadcast for single-object scenes."""
+    """table[obj], broadcast for single-object scenes. A table that
+    requires grad adds its gradient into its rows through
+    `ops.accumulate.index_accumulate` (`gather_rows`)."""
     if n_objects == 1:
         return table[0].expand(obj.shape + table.shape[1:])
-    return table[obj]
+    return gather_rows(table, obj)
 
 
 def _per_obj3(table, obj, n_objects: int):
-    """Per-object 3-vector table (No, 3) -> (3, Q) rows."""
+    """Per-object 3-vector table (No, 3) -> (3, Q) rows, as `_per_obj`."""
     if n_objects == 1:
         return table[0][:, None].expand(3, obj.shape[0])
-    return table.T[:, obj]
+    return gather_rows(table, obj, transpose=True)
 
 
 @torch.no_grad()
@@ -815,11 +818,12 @@ def _to_blocks(ro, rd, pix, weight, block: int) -> Queue:
 
 
 def _scatter(accum3, pix, values3):
-    """accum3 (3, n_pixels) with values3 (3, Q) added at columns pix (Q,),
-    duplicates summed in lane order: index_add, deterministic on CUDA
-    too, so repeat frames and train steps are bit-equal."""
-    with span("rt.integrator.scatter"), deterministic_algorithms():
-        return accum3.index_add(1, pix, values3)
+    """accum3 (3, n_pixels) with values3 (3, Q) added at columns pix (Q,)
+    (`ops.accumulate.index_accumulate`): on a card its kernel, whose
+    order of summation follows from the ids alone, so repeat frames and
+    train steps are bit-equal; on the CPU index_add, in lane order."""
+    with span("rt.integrator.scatter"):
+        return index_accumulate(accum3, pix, values3)
 
 
 def _bounce(scene, queue: Queue, accum3, stats, *, slot_accum: bool):

@@ -41,12 +41,12 @@ import time
 import numpy as np
 import torch
 
-from rendering_tpu_torch.device import deterministic_algorithms
 from rendering_tpu_torch.diff.checkpoint import (
     load_checkpoint,
     load_checkpoint_meta,
     save_checkpoint,
 )
+from rendering_tpu_torch.ops.accumulate import index_accumulate
 from rendering_tpu_torch.ops.sobel import sobel_mask
 from rendering_tpu_torch.ops.traversal import count_ac_nodes
 from rendering_tpu_torch.render.integrator import (
@@ -190,9 +190,10 @@ def _ssaa_pass(scene, frame3, *, capacity: int, ray_block=DEFAULT_RAY_BLOCK,
         # The four weighted subsamples of a pixel scattered one by one
         # (JAX's .at[:, pix].add branch), not summed per slot.
         colors3 = shade_normals(scene, ro, rd, ray_block=ray_block)
-        with span("rt.integrator.scatter"), deterministic_algorithms():
-            accum3 = torch.zeros((3, w * h), device=frame3.device).index_add(
-                1, pix.long(), weight[None, :] * colors3)
+        with span("rt.integrator.scatter"):
+            accum3 = index_accumulate(
+                torch.zeros((3, w * h), device=frame3.device), pix,
+                weight[None, :] * colors3)
         stats = zero_stats()
     elif st.any_bouncing:
         accum3, stats = integrate(scene, ro, rd, pix, weight, w * h,
@@ -205,9 +206,9 @@ def _ssaa_pass(scene, frame3, *, capacity: int, ray_block=DEFAULT_RAY_BLOCK,
         # four sum in the JAX package's order. Fill lanes add exact zeros.
         s = slots3.reshape(3, 4, capacity)
         summed3 = ((s[:, 0] + s[:, 1]) + s[:, 2]) + s[:, 3]
-        with span("rt.integrator.scatter"), deterministic_algorithms():
-            accum3 = torch.zeros((3, w * h), device=frame3.device).index_add(
-                1, idx_c.long(), summed3)
+        with span("rt.integrator.scatter"):
+            accum3 = index_accumulate(
+                torch.zeros((3, w * h), device=frame3.device), idx_c, summed3)
     frame3 = torch.where(mask[None], accum3.reshape(3, h, w), frame3)
     return frame3, n_masked, stats
 
