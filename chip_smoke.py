@@ -302,6 +302,16 @@ radiance scatter into the frame and the per-object gathers' backward):
     plain version, its ms a launch, the plain version's, the library's
     deterministic `index_add` (a yardstick only) and the bound in bytes.
 
+The train step on a transparent mesh (the benchmark's glass250k cell):
+
+41. benchmark/configs/glass250k.json at its full size, 800x600 and the
+    250,000-triangle glass mesh, 11 bounces, SSAA off, the cell's three
+    parameters: the share of primary rays on the glass, a frame at
+    headroom 1 (the paths it drops, against the live children a growing
+    queue keeps), then two train steps from the same state (launches by
+    kernel, no path dropped, bit-equal, peak memory) and the step's time.
+    `python3 chip_smoke.py 41` runs this phase alone.
+
 Every query a phase holds to its plain version (phases 3, 7, 11, 12, 13,
 14, 16, 23) is also timed against the tile walk its kernel replaced, in
 turns (tile, new, new, tile; `ms` is the new walk's, `tile_walk_ms` the
@@ -513,6 +523,7 @@ ACCUM_SOURCE = "rendering_tpu_torch/csrc/index_accumulate.cu"
 ACCUM_REPLACES = ("rendering_tpu/render/integrator.py:964, XLA's "
                   "scatter-add `.at[:, pix].add`")
 ACCUM_WH = (800, 600)    # the benchmark's simpleshapes cells
+GLASS_SEED = 3_000_000_019  # phase 41's mesh phase (the benchmark's seed)
 MEASURED_HBM_RATE = 2.88e12  # bytes/s, the HBM probe's on an H100
 # The inverse-rendering extras (phases 28-31): the demos' defaults.
 PAINT_LR = 0.05          # examples/texture_paint_demo_torch.py --lr
@@ -3628,6 +3639,108 @@ def index_accumulate_phase(card_line) -> dict:
     return out
 
 
+def glass_train_phase(ci, card_line) -> dict:
+    """Phase 41: the benchmark's glass250k cell at its full size through
+    `make_train_step` (module docstring)."""
+    import copy
+
+    sys.path.insert(0, os.path.join(os.path.dirname(TESTS), "benchmark"))
+    from harness import registry, scenes
+
+    from rendering_tpu_torch.diff.inverse import (
+        extract_params,
+        make_train_step,
+    )
+    from rendering_tpu_torch.ops import accumulate
+    from rendering_tpu_torch.render.integrator import (
+        QueueGrowth,
+        growing_queue,
+        trace_closest,
+    )
+    from rendering_tpu_torch.render.pipeline import (
+        derive_mesh_tables,
+        render_scene,
+    )
+    from rendering_tpu_torch.render.raygen import primary_rays
+
+    t0 = time.perf_counter()
+    cell = registry.workload("glass250k.train")
+    cfg = registry.config("glass250k")
+    desc = scenes.describe(cfg, GLASS_SEED, cell["params"]["settings"])
+    scene = scenes.program_scene(desc, "cuda")
+    st = scene.static.settings
+    w, h = st.width, st.height
+    glass = next(i for i, o in enumerate(desc["objects"])
+                 if o.get("material") == "transparent")
+    with torch.no_grad():
+        derived = derive_mesh_tables(scene)
+        ro, rd, _ = primary_rays(derived, offset=1.0)
+        share = 0.0
+        for b in range(0, ro.shape[0], 1 << 17):
+            hit, _ = trace_closest(derived, ro[b:b + (1 << 17)].T.contiguous(),
+                                   rd[b:b + (1 << 17)].T.contiguous())
+            share += float(((hit.obj == glass) & hit.hit).sum())
+        share /= w * h
+        _, aux1 = render_scene(scene)
+        growth = QueueGrowth()
+        with growing_queue(growth):
+            render_scene(scene)
+    dropped_h1 = int(aux1["stats"]["paths_dropped"])
+    live = sorted(growth.held.items(), key=lambda kv: kv[0][1])
+    print(f"glass share of primary rays {share:.4f}; headroom 1 dropped "
+          f"{dropped_h1} paths; growing queue lanes by bounce "
+          f"{[v for _, v in live]}")
+
+    paths = tuple(tuple(x) for x in cell["params"]["paths"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    target = torch.rand((3, h, w), generator=gen, device="cuda")
+    init, step_fn = make_train_step(paths)
+    steps, counts, peak = [], {}, 0
+    for i in range(2):
+        params = extract_params(scene, paths)
+        torch.cuda.reset_peak_memory_stats()
+        acc0 = accumulate.KERNELS["index_accumulate"].launches
+        with counted(ci, counts) if i == 0 else contextlib.nullcontext():
+            params, _, loss = step_fn(params, init(params), scene, target)
+        torch.cuda.synchronize()
+        if i == 0:
+            counts["index_accumulate"] = (
+                accumulate.KERNELS["index_accumulate"].launches - acc0)
+            peak = torch.cuda.max_memory_allocated()
+        steps.append([loss] + [t for v in params.values()
+                               for t in (v.detach().clone(), v.grad.clone())])
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(*steps)):
+        raise AssertionError("repeat glass train steps differ")
+    for t in steps[0][2::2]:
+        if not bool(torch.isfinite(t).all()) or float(t.abs().sum()) == 0:
+            raise AssertionError("a glass gradient is zero or not finite")
+    # The closest walk on every bounce; no any hit (shadow rays skip the
+    # glass, the only mesh) and no tile-walk variant.
+    print(f"glass train step launches: {({k: n for k, n in counts.items() if n})}")
+    if (not counts.get("closest_hit") or counts.get("any_hit")
+            or any(n for k, n in counts.items() if "tile_walk" in k)):
+        raise AssertionError(f"glass train step launches: {counts}")
+    params = extract_params(scene, paths)
+    state = init(params)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(2):
+        params, state, _ = step_fn(params, state, scene, target)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / 2
+    out = {"wh": [w, h], "n_tris": int(desc["objects"][glass]["arrays"]
+                                       ["v"].shape[0]),
+           "glass_share": share, "headroom1_dropped": dropped_h1,
+           "queue_lanes_by_bounce": [v for _, v in live],
+           "step_dropped": growth.dropped, "launches": {
+               k: n for k, n in counts.items() if n},
+           "repeat_bit_equal": True, "peak_bytes": peak, "step_s": step_s,
+           "phase_s": time.perf_counter() - t0}
+    print(f"glass train step: {json.dumps(out)} on {card_line}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3674,6 +3787,14 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print("  ptxas:", line.strip())
     print(f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["41"]:
+        glass = glass_train_phase(ci, card_line)
+        lap("41 glass train step")
+        print(json.dumps({"glass_train": glass, "phase_s": lap.laps}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     probe_sass = sass_counts(built[1][0])
     for fn, n in probe_sass.items():
         print(f"  sass {fn}: {n}")
@@ -4206,6 +4327,8 @@ def main() -> int:
     lap("39 dense multimesh")
     accum = index_accumulate_phase(card_line)
     lap("40 index accumulation")
+    glass = glass_train_phase(ci, card_line)
+    lap("41 glass train step")
 
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
@@ -4297,7 +4420,7 @@ def main() -> int:
         "texture_paint": paint, "camera_pose": pose, "turntable": turntable,
         "trace": traced, "multidevice": md,
         "bvh_flagship": bvh, "dense_multimesh": dense,
-        "index_accumulate": accum,
+        "index_accumulate": accum, "glass_train": glass,
         "intersect_sass": walk_sass,
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
                    "k9_ab": kprobe["ab"], "k9_sass": kprobe["sass"],

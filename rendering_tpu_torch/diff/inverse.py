@@ -19,6 +19,13 @@ writes nothing in place. The optimizer steps the leaves in place, as
 torch's optimizers do, where optax returns new arrays: no copy of the
 parameters is made per step.
 
+On a scene with transparent objects the step's continuation queue
+drops no path: the forward runs inside `render.integrator.
+growing_queue` with capacities the step keeps from step to step, and a
+step whose children outgrow the queue's limit raises `QueueOverflow`
+before its backward, so no gradient of a truncated path tree is
+returned.
+
 The kernel chunk tables stay as built. A vertex step changes `v`, and
 the gather table that the differentiable hit re-evaluation reads is
 derived from it in every render, but the oracle keeps picking triangles
@@ -33,6 +40,12 @@ from typing import Callable, Sequence
 import torch
 
 from rendering_tpu_torch.device import deterministic_algorithms
+from rendering_tpu_torch.render.integrator import (
+    MAX_QUEUE_HEADROOM,
+    QueueGrowth,
+    QueueOverflow,
+    growing_queue,
+)
 from rendering_tpu_torch.render.pipeline import render_scene
 from rendering_tpu_torch.utils.tracing import span
 
@@ -80,6 +93,27 @@ def adam(params: list) -> torch.optim.Optimizer:
     return torch.optim.Adam(params, lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
 
 
+def check_dropped(growth: QueueGrowth, comm=None) -> None:
+    """Raise `QueueOverflow` when the forward inside
+    `growing_queue(growth)` dropped paths on this rank or, with `comm`
+    (a ray axis), on any rank of it (one all-reduce, so every rank
+    raises alike)."""
+    dropped = growth.dropped
+    if comm is not None and comm.size > 1:
+        from rendering_tpu_torch.parallel import collectives
+
+        with span("rt.sync.dropped"):
+            dropped = int(collectives.all_reduce(
+                comm, torch.tensor([dropped], dtype=torch.int64,
+                                   device=collectives.backend_device(comm))
+            ).item())
+    if dropped:
+        raise QueueOverflow(
+            f"{dropped} transparent continuation paths outgrew the queue's "
+            f"limit ({MAX_QUEUE_HEADROOM} x the pass's rays); a step on "
+            f"the truncated path tree would give a wrong gradient")
+
+
 def make_train_step(paths: Sequence[Path],
                     optimizer: Callable[[list], torch.optim.Optimizer] | None = None,
                     mesh=None, render_fn=None):
@@ -103,7 +137,14 @@ def make_train_step(paths: Sequence[Path],
     `deterministic_algorithms`, so two steps from the same state are
     bit-equal on the card too. In a recorded trace the step is the span
     `rt.train.step` holding `rt.train.forward` (render and loss),
-    `rt.train.backward` and `rt.train.optimizer`."""
+    `rt.train.backward` and `rt.train.optimizer`.
+
+    The forward renders inside `growing_queue` with one `QueueGrowth`
+    per step_fn: a transparent scene's continuation queue keeps every
+    live child (its capacities settle in the first step), and a forward
+    that dropped paths at the queue's limit raises before the backward
+    (`check_dropped`: no host read on one device, one all-reduce with
+    `mesh` on a transparent scene)."""
     paths = tuple(tuple(p) for p in paths)
     optimizer = optimizer or adam
     if render_fn is None:
@@ -127,15 +168,19 @@ def make_train_step(paths: Sequence[Path],
         with GradReducer(params.values(), mesh.rays):
             loss.backward()
 
+    growth = QueueGrowth()
+
     def init_fn(params: dict):
         return optimizer(list(params.values()))
 
     def step_fn(params: dict, opt_state, scene, target):
         with span("rt.train.step"), deterministic_algorithms():
             opt_state.zero_grad(set_to_none=True)
-            with span("rt.train.forward"):
+            with span("rt.train.forward"), growing_queue(growth):
                 frame = render_fn(apply_params(scene, params, paths))
                 loss = torch.mean((frame - target) ** 2)
+            if scene.static.any_transparent:
+                check_dropped(growth, mesh.rays if mesh is not None else None)
             with span("rt.train.backward"):
                 backward(loss, params)
             with span("rt.train.optimizer"):

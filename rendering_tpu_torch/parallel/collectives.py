@@ -17,6 +17,10 @@ are then its share, and one SUM all-reduce of them over the ray ranks
 this from shard_map's typing of varying and replicated values;
 `torch.distributed.nn`'s all_reduce and all_gather sum the cotangent over
 ranks in backward, which counts it once per rank.
+
+In a recorded trace (`utils.tracing`) every all-reduce is the span
+`rt.ranks.all_reduce` and every all-gather `rt.ranks.all_gather` (the
+gradient buckets of `parallel.overlap` too).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+
+from rendering_tpu_torch.utils.tracing import span
 
 _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
 
@@ -45,6 +51,15 @@ def single() -> Comm:
     return Comm(None, 0, 1)
 
 
+def backend_device(comm: Comm) -> torch.device:
+    """The device the axis's collectives take a new tensor on: the
+    current card under NCCL, which takes no CPU tensor; else the CPU
+    (gloo takes either)."""
+    if dist.get_backend(comm.group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def _buffer(x: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of x for a collective to write."""
     return x.detach().clone(memory_format=torch.contiguous_format)
@@ -56,8 +71,9 @@ def all_reduce(comm: Comm, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     if comm.size == 1:
         return x
     buf = _buffer(x)
-    dist.all_reduce(buf, op=getattr(dist.ReduceOp, _OPS[op]),
-                    group=comm.group)
+    with span("rt.ranks.all_reduce"):
+        dist.all_reduce(buf, op=getattr(dist.ReduceOp, _OPS[op]),
+                        group=comm.group)
     return buf
 
 
@@ -68,7 +84,8 @@ def all_gather(comm: Comm, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         return x
     buf = _buffer(x)
     parts = [torch.empty_like(buf) for _ in range(comm.size)]
-    dist.all_gather(parts, buf, group=comm.group)
+    with span("rt.ranks.all_gather"):
+        dist.all_gather(parts, buf, group=comm.group)
     return torch.cat(parts, dim=dim)
 
 
@@ -115,12 +132,13 @@ def sum_replicated(comm: Comm, x: torch.Tensor) -> torch.Tensor:
 def all_reduce_stats(comm: Comm, stats: dict) -> dict:
     """The render counters summed over the axis in one all-reduce (as
     float64, exact for counts below 2^53): rays_casted a float tensor,
-    the others int64 tensors."""
+    the others int64 tensors. Counters that are all host numbers go on
+    the backend's device (`backend_device`)."""
     if comm.size == 1:
         return stats
     keys = list(stats)
     dev = next((v.device for v in stats.values()
-                if isinstance(v, torch.Tensor)), torch.device("cpu"))
+                if isinstance(v, torch.Tensor)), None) or backend_device(comm)
     packed = torch.stack([torch.as_tensor(stats[k], dtype=torch.float64,
                                           device=dev).reshape(())
                           for k in keys])

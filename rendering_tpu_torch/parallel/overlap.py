@@ -20,7 +20,8 @@ psums inside the backward scan, or one bulk psum after it. Here:
 
 Both give the same gradients up to f32 reduction order, and every rank
 receives the same bits, so an optimizer step keeps the ranks' parameters
-equal.
+equal. Each bucket's launch, and the wait for them all, is the span
+`rt.ranks.all_reduce` in a recorded trace.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from rendering_tpu_torch.parallel.collectives import Comm
+from rendering_tpu_torch.utils.tracing import span
 
 # Gradient bytes per asynchronous all-reduce of the overlapped schedule.
 BUCKET_BYTES = 16 << 20
@@ -79,7 +81,9 @@ class GradReducer:
         flat = torch.cat([(p.grad if p.grad is not None
                            else torch.zeros_like(p)).reshape(-1)
                           for p in bucket])
-        work = dist.all_reduce(flat, group=self.comm.group, async_op=True)
+        with span("rt.ranks.all_reduce"):
+            work = dist.all_reduce(flat, group=self.comm.group,
+                                   async_op=True)
         self.works.append((bucket, flat, work))
 
     def __exit__(self, exc_type, exc, tb):
@@ -95,7 +99,8 @@ class GradReducer:
             self._launch(self.params)
         had = {id(p) for p in self.params if p.grad is not None}
         for bucket, flat, work in self.works:
-            work.wait()
+            with span("rt.ranks.all_reduce"):
+                work.wait()
             o = 0
             for p in bucket:
                 n = p.numel()
@@ -117,13 +122,18 @@ def make_sharded_grad_fn(paths, mesh, *, overlap: bool = True,
     last row and column left out), grads the parameters' .grad tensors,
     summed over the ranks. Scope, as JAX's: the primary pass, no SSAA
     (render with enable_ssaa=False). Runs under
-    `deterministic_algorithms()`."""
+    `deterministic_algorithms()`. As `diff.inverse.make_train_step`, the
+    integration runs inside `growing_queue`, and on a transparent scene a
+    forward that dropped paths on any rank raises before the backward
+    (`diff.inverse.check_dropped`)."""
     from rendering_tpu_torch.device import deterministic_algorithms
-    from rendering_tpu_torch.diff.inverse import apply_params
+    from rendering_tpu_torch.diff.inverse import apply_params, check_dropped
     from rendering_tpu_torch.parallel import collectives
     from rendering_tpu_torch.parallel.shard import _local, _round_robin_layout
     from rendering_tpu_torch.render.integrator import (
         DEFAULT_RAY_BLOCK,
+        QueueGrowth,
+        growing_queue,
         integrate,
     )
     from rendering_tpu_torch.render.pipeline import derive_mesh_tables
@@ -132,6 +142,7 @@ def make_sharded_grad_fn(paths, mesh, *, overlap: bool = True,
     paths = tuple(tuple(p) for p in paths)
     ray_block = ray_block or DEFAULT_RAY_BLOCK
     comm = mesh.rays
+    growth = QueueGrowth()
 
     def grad_fn(params, scene, target3):
         st = scene.static
@@ -159,10 +170,14 @@ def make_sharded_grad_fn(paths, mesh, *, overlap: bool = True,
             s = derive_mesh_tables(apply_params(scene, params, paths))
             rd = pixel_dirs(s, xs, ys, 1.0, 1.0)
             ro = s.cam_pos.expand(rd.shape)
-            slots3, _stats = integrate(
-                s, ro, rd, torch.arange(nloc, dtype=torch.int32, device=dev),
-                torch.ones((nloc,), device=dev), nloc, ray_block=ray_block,
-                out_slots=not st.any_bouncing)
+            with growing_queue(growth):
+                slots3, _stats = integrate(
+                    s, ro, rd,
+                    torch.arange(nloc, dtype=torch.int32, device=dev),
+                    torch.ones((nloc,), device=dev), nloc,
+                    ray_block=ray_block, out_slots=not st.any_bouncing)
+            if st.any_transparent:
+                check_dropped(growth, comm)
             err = (slots3 - tgt) * valid[None, :]
             loss_r = torch.sum(err * err) / (3.0 * n_loss_px)
             with GradReducer(params.values(), comm, overlap=overlap):

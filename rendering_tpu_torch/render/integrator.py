@@ -39,18 +39,29 @@ dense scan (`ops/bruteforce_mxu.py` with use_mxu_intersect, else
 counters go into the stats whether or not collectStatistics is set, as
 JAX's do.
 
+Inside `growing_queue` (the train steps) the transparent queue drops
+nothing: each compaction keeps every live child, in as many ray blocks
+as hold them (`QueueGrowth`), so bounce 0 carries no padding and the
+later bounces only the blocks their children fill.
+
 In a recorded trace (`utils.tracing`) each bounce of `integrate` is the
 span `rt.integrator.bounce`, holding per ray block `rt.integrator.trace`
 (the closest hit), `rt.integrator.shade` (the rest of `bounce_block`)
 with `rt.integrator.shadow` (the occlusion queries) inside it, then the
 radiance scatter `rt.integrator.scatter` and the continuations' re-sort
-or compaction `rt.integrator.compact`. The counters `lanes` and
-`live_lanes` take each bounce block's lanes and those above min_weight;
-the scatters' lanes count in `accum_lanes` (`ops.accumulate`).
+or compaction `rt.integrator.compact`; a compaction that enlarges a
+`QueueGrowth`'s capacity is the span `rt.train.regrow`. The counters
+`lanes` and `live_lanes` take each bounce block's lanes and those above
+min_weight, `queue_lanes` and `queue_live_lanes` the same of the
+continuation queue on bounces 1 and later; the scatters' lanes count in
+`accum_lanes` (`ops.accumulate`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
 from typing import NamedTuple
 
@@ -102,6 +113,61 @@ from rendering_tpu_torch.utils.tracing import span, traced
 # Rays per block of the bounce body (bounds every per-ray temporary):
 # 131072 rays = 256 kernel tiles per closest-hit launch.
 DEFAULT_RAY_BLOCK = 1 << 17
+
+# Upper bound of the transparent queue, in multiples of a pass's first
+# queue: the frames' headroom escalation (`render.pipeline.
+# escalating_render`) and a growing queue's capacity (`QueueGrowth`).
+# Headroom h costs h x the queue's lanes per bounce (dead lanes are
+# culled in the kernel but still shade).
+MAX_QUEUE_HEADROOM = 8
+
+
+class QueueOverflow(RuntimeError):
+    """A growing queue reached MAX_QUEUE_HEADROOM and dropped paths."""
+
+
+class QueueGrowth:
+    """The capacities of a growing transparent queue (`growing_queue`):
+    at each compaction one host read of the live children, which are
+    then all kept, in the ray blocks that hold them (one at least) and
+    never fewer than were held at the same bounce of the same pass
+    before (`held`, keyed by (rays in, bounce)). A train step keeps one
+    across its steps, so the capacities settle in the first step and the
+    shapes repeat. Past MAX_QUEUE_HEADROOM x the pass's first queue the
+    compaction keeps the largest weights, as the capped queue does, and
+    `dropped` counts the rest (a host int, since `growing_queue` was
+    entered)."""
+
+    def __init__(self):
+        self.held: dict = {}
+        self.dropped = 0
+
+    def lanes(self, key, n_live: int, block: int, limit: int):
+        """(lanes of the next queue, whether that enlarged the held
+        capacity) for n_live live children."""
+        held = self.held.get(key, 0)
+        need = min(limit, max(1, -(-n_live // block)) * block)
+        if need <= held:
+            return held, False
+        self.held[key] = need
+        return need, True
+
+
+_GROWTH: contextvars.ContextVar = contextvars.ContextVar("queue_growth",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def growing_queue(growth: QueueGrowth):
+    """Within the block, `integrate` sizes every transparent pass's
+    continuation queue by `growth` (in place of its queue_headroom);
+    growth.dropped restarts at 0."""
+    growth.dropped = 0
+    token = _GROWTH.set(growth)
+    try:
+        yield growth
+    finally:
+        _GROWTH.reset(token)
 
 
 def _samplers(settings):
@@ -826,7 +892,8 @@ def _scatter(accum3, pix, values3):
         return index_accumulate(accum3, pix, values3)
 
 
-def _bounce(scene, queue: Queue, accum3, stats, *, slot_accum: bool):
+def _bounce(scene, queue: Queue, accum3, stats, *, slot_accum: bool,
+            grow=None):
     """One castRay level for the whole queue (JAX `_bounce`). Returns
     (next queue, accum3); the next queue is None in a non-bouncing scene.
 
@@ -838,7 +905,7 @@ def _bounce(scene, queue: Queue, accum3, stats, *, slot_accum: bool):
     the Morton key of its origins (inactive lanes last), so the next
     bounce's ray tiles stay spatially coherent; with transparent objects
     the two children of every lane compact to the queue's capacity
-    (`_compact_children`)."""
+    (`_compact_children`), or with `grow` to the capacity it gives."""
     st = scene.static
     min_w = st.settings.min_weight
     nb, _, b = queue.ro3.shape
@@ -863,11 +930,11 @@ def _bounce(scene, queue: Queue, accum3, stats, *, slot_accum: bool):
         return None, accum3
     with span("rt.integrator.compact"):
         return _continuations(st, outs, queue, pix, stats,
-                              slot_accum=slot_accum), accum3
+                              slot_accum=slot_accum, grow=grow), accum3
 
 
 def _continuations(st, outs, queue: Queue, pix, stats, *,
-                   slot_accum: bool) -> Queue:
+                   slot_accum: bool, grow=None) -> Queue:
     """The next queue from the blocks' continuations (`_bounce`)."""
     min_w = st.settings.min_weight
     nb, _, b = queue.ro3.shape
@@ -891,32 +958,55 @@ def _continuations(st, outs, queue: Queue, pix, stats, *,
         torch.cat([c_ro, cat("c2_ro3")], dim=1),
         torch.cat([c_rd, cat("c2_rd3")], dim=1),
         torch.cat([c_w, cat("c2_w")]),
-        torch.cat([pix, pix]), nb * b, min_w, stats)
-    return Queue(_blocks3(k_ro, nb, b), _blocks3(k_rd, nb, b),
-                 k_w.reshape(nb, b), k_pix.reshape(nb, b))
+        torch.cat([pix, pix]), nb * b, min_w, stats, grow=grow)
+    nk = k_w.shape[0] // b
+    return Queue(_blocks3(k_ro, nk, b), _blocks3(k_rd, nk, b),
+                 k_w.reshape(nk, b), k_pix.reshape(nk, b))
 
 
 def _compact_children(cand_ro, cand_rd, cand_w, cand_pix, capacity: int,
-                      min_w: float, stats: dict):
+                      min_w: float, stats: dict, *, grow=None):
     """Compact the 2Q candidate children to the queue capacity Q (JAX
     `_compact_children`): the Q largest weights are kept (a stable
     argsort of -weight, so ties keep queue order), the kept set is
     ordered by the Morton key of its origins, inactive lanes last. Active
-    paths that do not fit are counted in stats["paths_dropped"]."""
+    paths that do not fit are counted in stats["paths_dropped"].
+
+    grow(n_live) -> (capacity, grew) replaces Q by what a `QueueGrowth`
+    gives for the live count, read on the host: every live child fits
+    unless the growth is at its limit, and the kept set is the same as
+    the capped queue's with room enough. A compaction that grew is the
+    span `rt.train.regrow`."""
     cand_w = torch.where(cand_w > min_w, cand_w, 0.0)
     active = cand_w > min_w
-    with torch.no_grad():
-        worder = torch.argsort(torch.where(active, -cand_w, math.inf),
-                               stable=True)
-        keep = torch.zeros_like(active)
-        with span("rt.sync.compact_keep"):  # True is copied from the host
-            keep[worder[:capacity]] = True
-        key = torch.where(keep & active, morton_key_r(cand_ro),
-                          MORTON_INACTIVE)
+    fits, grew = False, False
+    if grow is not None:
+        with span("rt.sync.queue_live"):
+            n_live = int(active.sum())
+        capacity, grew = grow(n_live)
+        fits = n_live <= capacity
+    with span("rt.train.regrow") if grew else contextlib.nullcontext(), \
+            torch.no_grad():
+        if fits:
+            key = torch.where(active, morton_key_r(cand_ro), MORTON_INACTIVE)
+        else:
+            worder = torch.argsort(torch.where(active, -cand_w, math.inf),
+                                   stable=True)
+            keep = torch.zeros_like(active)
+            with span("rt.sync.compact_keep"):  # True is copied from the host
+                keep[worder[:capacity]] = True
+            key = torch.where(keep & active, morton_key_r(cand_ro),
+                              MORTON_INACTIVE)
         order = torch.argsort(key, stable=True)[:capacity]
     kept_w = cand_w[order]
-    n_kept = (kept_w > min_w).sum()
-    stats["paths_dropped"] = stats["paths_dropped"] + (active.sum() - n_kept)
+    if grow is not None:
+        # Every kept lane is live when the children overflow the limit.
+        dropped = n_live - min(n_live, capacity)
+        stats["paths_dropped"] = stats["paths_dropped"] + dropped
+    else:
+        n_kept = (kept_w > min_w).sum()
+        stats["paths_dropped"] = (stats["paths_dropped"]
+                                  + (active.sum() - n_kept))
     return cand_ro[:, order], cand_rd[:, order], kept_w, cand_pix[order]
 
 
@@ -937,7 +1027,9 @@ def integrate(scene, ro, rd, pix, weight, n_pixels: int, *,
     on transparent scenes, so the compaction keeps up to headroom x R
     paths (`render.pipeline.escalating_render` raises it while paths are
     dropped). Dead lanes still run the plain-torch pre-pass and shading
-    and count in rays_casted, as in the JAX package."""
+    and count in rays_casted, as in the JAX package. Inside
+    `growing_queue` a transparent scene's queue follows its live
+    children instead, and the headroom is not used."""
     st = scene.static
     if out_slots and st.any_transparent:
         raise ValueError("slot accumulation needs fixed slots; a "
@@ -949,8 +1041,9 @@ def integrate(scene, ro, rd, pix, weight, n_pixels: int, *,
     if r_in == 0:
         return torch.zeros((3, 0 if out_slots else n_pixels), device=dev), stats
     queue = _to_blocks(ro, rd, pix, weight, min(ray_block, r_in))
-    if queue_headroom > 1 and st.any_transparent:
-        nb0, _, b0 = queue.ro3.shape
+    nb0, _, b0 = queue.ro3.shape
+    growth = _GROWTH.get() if st.any_transparent else None
+    if queue_headroom > 1 and st.any_transparent and growth is None:
         extra = nb0 * (queue_headroom - 1)
         queue = Queue(
             torch.cat([queue.ro3, torch.zeros((extra, 3, b0), device=dev)]),
@@ -960,18 +1053,26 @@ def integrate(scene, ro, rd, pix, weight, n_pixels: int, *,
                                               device=dev)]),
         )
     accum3 = None if out_slots else torch.zeros((3, n_pixels), device=dev)
-    for _ in range(n_bounces):
+    min_w = st.settings.min_weight
+    for k in range(n_bounces):
+        if k:
+            tracing.count("queue_lanes", queue.weight.numel())
+            tracing.count("queue_live_lanes", queue.weight > min_w)
+        grow = None if growth is None else functools.partial(
+            growth.lanes, (r_in, k), block=b0,
+            limit=MAX_QUEUE_HEADROOM * nb0 * b0)
         with span("rt.integrator.bounce"):
             queue, accum3 = _bounce(scene, queue, accum3, stats,
-                                    slot_accum=out_slots)
+                                    slot_accum=out_slots, grow=grow)
+    if growth is not None:
+        growth.dropped += stats["paths_dropped"]
     if st.any_bouncing:
         # Depth guard: the surviving continuations return the skybox.
         rd3, w = _flat3(queue.rd3), queue.weight.reshape(-1)
         sky3 = sample_skybox_r(
             scene.skybox if st.settings.use_skybox else None, rd3,
             scene.bg_color)
-        tail3 = torch.where((w > st.settings.min_weight)[None, :],
-                            w[None, :] * sky3, 0.0)
+        tail3 = torch.where((w > min_w)[None, :], w[None, :] * sky3, 0.0)
         accum3 = (accum3 + tail3 if out_slots
                   else _scatter(accum3, queue.pix.reshape(-1), tail3))
     if out_slots:

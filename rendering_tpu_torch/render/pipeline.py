@@ -51,6 +51,7 @@ from rendering_tpu_torch.ops.sobel import sobel_mask
 from rendering_tpu_torch.ops.traversal import count_ac_nodes
 from rendering_tpu_torch.render.integrator import (
     DEFAULT_RAY_BLOCK,
+    MAX_QUEUE_HEADROOM,
     add_stats,
     integrate,
     shade_normals,
@@ -269,13 +270,6 @@ def render_scene(scene, ray_block: int = DEFAULT_RAY_BLOCK,
         add_stats(stats, s2)
     aux = {"stats": stats, "ssaa_masked": n_masked}
     return (quantize_u8(frame3) if out_u8 else frame3), aux
-
-
-# Upper bound of the transparent-queue headroom escalation: headroom h
-# costs h x the queue's lanes per bounce (dead lanes are culled in the
-# kernel but still shade), so a frame whose transparent tree outgrows 8
-# slots per pixel keeps the drop warning instead of escalating further.
-MAX_QUEUE_HEADROOM = 8
 
 
 def escalating_render(render_fn, st, *, cap_pad: int = 1):

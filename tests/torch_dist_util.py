@@ -365,6 +365,62 @@ def geo_worker(rank, world, n_geo, cases):
                       mesh.geo.size), "cases": out}
 
 
+GLASS_PATHS = (("lights", 0, "intensity"), ("obj_color",), ("meshes", 0, "v"))
+
+
+def glass_scene(device="cpu", seed=7, width=64, height=48, n_tris=2000,
+                size=3.6):
+    """(SceneDef of the port, the description) of the benchmark's
+    glass250k configuration cut to `width` x `height` and `n_tris`
+    triangles, SSAA off, the glass mesh at `size` (3.6: its transparent
+    queue overflows headroom 1 at 64x48)."""
+    import copy
+
+    bench = os.path.join(REPO, "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from harness import registry, scenes
+
+    cfg = copy.deepcopy(registry.config("glass250k"))
+    mesh = next(o for o in cfg["objects"] if o["type"] == "mesh")
+    mesh["size"] = [size] * 3
+    desc = scenes.describe(cfg, seed, {"width": width, "height": height,
+                                       "n_tris": n_tris,
+                                       "enable_ssaa": False})
+    return scenes.program_scene(desc, device), desc
+
+
+def glass_target(scene):
+    """The glass cases' target: the frame inside a growing queue, x 0.8
+    + 0.05 (every rank computes the same)."""
+    from rendering_tpu_torch.render.integrator import (
+        QueueGrowth,
+        growing_queue,
+    )
+    from rendering_tpu_torch.render.pipeline import render_scene
+
+    with torch.no_grad(), growing_queue(QueueGrowth()):
+        return render_scene(scene)[0] * 0.8 + 0.05
+
+
+def glass_worker(rank, world):
+    """On the glass-heavy scene: the sharded train step's first step
+    (loss, gradients) and make_sharded_grad_fn's (loss, gradients)."""
+    from rendering_tpu_torch.diff.inverse import extract_params, make_train_step
+    from rendering_tpu_torch.parallel.overlap import make_sharded_grad_fn
+    from rendering_tpu_torch.parallel.shard import make_ray_mesh
+
+    mesh = make_ray_mesh(device="cpu")
+    scene, _ = glass_scene()
+    target = glass_target(scene)
+    init, step = make_train_step(GLASS_PATHS, mesh=mesh)
+    grads, losses, _ = train_steps(step, init, scene, GLASS_PATHS, target, 1)
+    fn = make_sharded_grad_fn(GLASS_PATHS, mesh)
+    loss, g = fn(extract_params(scene, GLASS_PATHS), scene, target)
+    return {"train": (losses[0], grads[0]),
+            "grad_fn": (float(loss), {k: _np(v).copy() for k, v in g.items()})}
+
+
 def collectives_worker(rank, world):
     """The collectives on the world's axis and on a subgroup of ranks 1..
     (`parallel.collectives`), and the backward of the two that carry a
