@@ -312,6 +312,21 @@ The train step on a transparent mesh (the benchmark's glass250k cell):
     kernel, no path dropped, bit-equal, peak memory) and the step's time.
     `python3 chip_smoke.py 41` runs this phase alone.
 
+The pre-pass kernel (csrc/mesh_intersect.cu `prepass_kernel`, every
+query's visit tables):
+
+42. the flagship frame's middle ray block (256 tiles x 489 supers), its
+    primary and its shadow query: the kernel's torder and counts
+    bit-equal to the plain `tile_tables` on the same card inputs; the
+    ms a launch of the kernel, of the sort keys' PyTorch ops and of the
+    plain version, of `prepare` with each, the bound (tiles x 512 x Cs
+    slab tests at PREPASS_SLAB_OPS f32 instructions, or the bytes), and
+    whether `prepare` makes a host sync (PyTorch's sync debug mode);
+    then the flagship train step with the plain pre-pass and with the
+    kernel in turns. Every launch check requires one pre-pass launch
+    for each intersection launch. `python3 chip_smoke.py 42` runs this
+    phase alone.
+
 Every query a phase holds to its plain version (phases 3, 7, 11, 12, 13,
 14, 16, 23) is also timed against the tile walk its kernel replaced, in
 turns (tile, new, new, tile; `ms` is the new walk's, `tile_walk_ms` the
@@ -582,6 +597,11 @@ BVH_PLAIN_RAYS = RAY_BLOCK
 DENSE_WH = (960, 540)
 # No Pallas kernel: the JAX package's closest-hit walk is this XLA loop.
 BVH_REPLACES = "rendering_tpu/ops/traversal.py:49"
+# No Pallas kernel: the JAX package's pre-pass is this XLA function.
+PREPASS_REPLACES = "rendering_tpu/ops/pallas_intersect.py::_tile_tables"
+# f32 instructions per slab test of the pre-pass (csrc/mesh_intersect.cu
+# cull_live), as the other slab bounds count them.
+PREPASS_SLAB_OPS = AC_SLAB_OPS
 
 
 def flags(ci, name) -> dict:
@@ -814,15 +834,22 @@ def check_frame(scene, frame3, w, h, what):
 
 def check_launches(counts, expect: dict, what):
     """counts of the path's run: each kernel in `expect` launched that
-    many times (> 0), every other kernel not at all."""
+    many times (> 0), every other kernel not at all, except the pre-pass
+    kernel (`prepass`), which `expect` leaves out: once for each launch of
+    an intersection kernel, as each query prepares once."""
+    from rendering_tpu_torch.ops import cuda_intersect as ci
+
     print(f"{what} launches: {({k: n for k, n in counts.items() if n})}")
+    if min(expect.values()) <= 0:
+        raise AssertionError(f"{what}: a kernel of the path never launched")
+    if "prepass" in counts:
+        expect = {**expect, "prepass": sum(
+            n for k, n in counts.items() if k in ci.KERNELS and k != "prepass")}
     for name, n in counts.items():
         want = expect.get(name, 0)
         if n != want:
             raise AssertionError(f"{what}: {name} launched {n} times, "
                                  f"expected {want}")
-    if min(expect.values()) <= 0:
-        raise AssertionError(f"{what}: a kernel of the path never launched")
 
 
 def whole_render_parity(ci, build, what):
@@ -1760,7 +1787,8 @@ def transparent_phase(ci) -> dict:
     launched = {k for k, n in counts.items() if n}
     print(f"transparent mesh render launches: "
           f"{ {k: counts[k] for k in sorted(launched)} }")
-    if launched != {"fused_closest_hit_stats", "fused_any_hit_stats"}:
+    if launched != {"fused_closest_hit_stats", "fused_any_hit_stats",
+                    "prepass"}:
         raise AssertionError("the transparent mesh scene launched other "
                              "kernels than the fused ones with counters")
     err = check_parity(ci, "fused_any_hit_stats", *kept[True], bfc)
@@ -3741,6 +3769,141 @@ def glass_train_phase(ci, card_line) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_prepass(ci):
+    """`prepare` on the card with the plain pre-pass (`tile_tables` in
+    PyTorch's kernels) in place of the pre-pass kernel."""
+    def tables(aux, sbox, dist2):
+        rows = aux.reshape(10, -1, ci.RAY_TILE).transpose(0, 1)
+        return ci.tile_tables(rows[:, 0:3], rows[:, 6:9], rows[:, 9], sbox)
+
+    saved = ci.prepass_kernel
+    ci.prepass_kernel = tables
+    try:
+        yield
+    finally:
+        ci.prepass_kernel = saved
+
+
+def syncs_in(fn) -> str:
+    """"none" when fn() runs under PyTorch's sync debug mode "error"
+    without a host sync, else the error's first line."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return "none"
+
+
+def prepass_phase(ci, card_line) -> tuple[dict, dict]:
+    """Phase 42: the pre-pass kernel on the flagship's middle ray block
+    (module docstring). Returns (numbers, the kernel table's row)."""
+    from rendering_tpu_torch.diff.inverse import (
+        extract_params,
+        make_train_step,
+    )
+    from rendering_tpu_torch.flagship import build_flagship_scene
+    from rendering_tpu_torch.render.pipeline import render_scene
+
+    scene = build_flagship_scene(WIDTH, HEIGHT, n_tris=N_TRIS)
+    n_blocks = -(-WIDTH * HEIGHT // RAY_BLOCK)
+    kept: dict = {}
+    counts: dict = {}
+    with torch.no_grad(), keep_block(ci, n_blocks // 2, kept), \
+            counted(ci, counts):
+        render_scene(scene)
+    check_launches(counts, {"closest_hit": n_blocks, "any_hit": n_blocks},
+                   f"flagship render_scene ({n_blocks} ray blocks)")
+    kernel = ci.KERNELS["prepass"]
+    out: dict = {"frame_launches": counts["prepass"]}
+    for anyhit, label in ((False, "primary"), (True, "shadow")):
+        tb, prep = kept[anyhit]
+        aux, n, cs = prep.aux, prep.n_rays, tb.sbox.shape[0]
+        rows = aux.reshape(10, -1, ci.RAY_TILE).transpose(0, 1)
+        args = (rows[:, 0:3], rows[:, 6:9], rows[:, 9], tb.sbox)
+        dist2 = ci.super_dist2(rows[:, 0:3], rows[:, 9], tb.sbox).contiguous()
+        want = ci.tile_tables(*args)
+        got = kernel(aux, tb.sbox, dist2)
+        if not (same(got, want) and same((prep.torder, prep.counts), want)):
+            raise AssertionError(f"the pre-pass kernel ({label}) disagrees "
+                                 f"with tile_tables")
+        query = (tb, aux[0:3, :n], aux[3:6, :n], aux[9, :n])
+        prepare_ms = mean_ms(lambda: ci.prepare(*query), reps=20)
+        with plain_prepass(ci):
+            plain_prepare_ms = mean_ms(lambda: ci.prepare(*query), reps=3)
+            plain_syncs = syncs_in(lambda: ci.prepare(*query))
+        held = int((aux[9] >= 0).sum()) + int(torch.isnan(aux[9]).sum())
+        tests = prep.n_tiles * ci.RAY_TILE * cs
+        n_bytes = sum(x.numel() * x.element_size()
+                      for x in (aux, tb.sbox, dist2, *want))
+        ops_ms = tests * PREPASS_SLAB_OPS / F32_OPS_RATE * 1e3
+        bytes_ms = n_bytes / HBM_RATE * 1e3
+        out[label] = {
+            "tiles": prep.n_tiles, "supers": cs, "rays": n,
+            "unresolved_rays": held, "slab_tests": tests,
+            "live_supers_mean": float(want[1].double().mean()),
+            "ms": mean_ms(lambda: kernel(aux, tb.sbox, dist2), reps=50),
+            "dist2_ms": mean_ms(lambda: ci.super_dist2(
+                rows[:, 0:3], rows[:, 9], tb.sbox), reps=20),
+            "plain_ms": mean_ms(lambda: ci.tile_tables(*args), reps=3),
+            "prepare_ms": prepare_ms, "plain_prepare_ms": plain_prepare_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "unresolved_bound_ms": (held * cs * PREPASS_SLAB_OPS
+                                    / F32_OPS_RATE * 1e3),
+            "syncs": syncs_in(lambda: ci.prepare(*query)),
+            "plain_syncs": plain_syncs}
+        print(f"pre-pass {label}: {json.dumps(out[label])}")
+        if out[label]["syncs"] != "none":
+            raise AssertionError(f"prepare synchronized: {out[label]['syncs']}")
+
+    # The flagship train step with the plain pre-pass and with the kernel,
+    # in turns (plain, kernel, kernel, plain), two timed steps each.
+    flag = train(ci, scene, BENCH_PATHS, reps=2,
+                 zero_ok=("lights/0/intensity", "obj_color"))
+    check_launches(flag["launches"],
+                   {"closest_hit": n_blocks, "any_hit": n_blocks},
+                   "flagship train step")
+    gen = torch.Generator(device=scene.device).manual_seed(0)
+    st = scene.static.settings
+    target = torch.rand((3, st.height, st.width), generator=gen,
+                        device=scene.device)
+    init, step_fn = make_train_step(BENCH_PATHS)
+    steps = {True: [], False: []}
+    for use_kernel in (False, True, True, False):
+        with (contextlib.nullcontext() if use_kernel else plain_prepass(ci)):
+            params = extract_params(scene, BENCH_PATHS)
+            state = init(params)
+            params, state, _ = step_fn(params, state, scene, target)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                params, state, _ = step_fn(params, state, scene, target)
+            torch.cuda.synchronize()
+            steps[use_kernel].append((time.perf_counter() - t0) / 2 * 1e3)
+    out["step_launches"] = flag["launches"]["prepass"]
+    out["step_ms"] = steps[True]
+    out["plain_step_ms"] = steps[False]
+    print(f"flagship train step with the pre-pass kernel "
+          f"{steps[True]} ms, with the plain pre-pass {steps[False]} ms "
+          f"(in turns) on {card_line}")
+    row = {"name": "prepass", "route": "cuda", "source": SOURCE,
+           "replaces": PREPASS_REPLACES,
+           "launches": {"frame": out["frame_launches"],
+                        "step": out["step_launches"]},
+           "max_abs_err": 0.0, "ms": out["primary"]["ms"],
+           "plain_ms": out["primary"]["plain_ms"],
+           "bound_ms": out["primary"]["bound_ms"],
+           "bound_by": out["primary"]["bound_by"], "library_ms": None}
+    del scene
+    torch.cuda.empty_cache()
+    return out, row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3787,6 +3950,15 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print("  ptxas:", line.strip())
     print(f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["42"]:
+        numbers, row = prepass_phase(ci, card_line)
+        lap("42 pre-pass kernel")
+        print(json.dumps({"prepass": numbers, "phase_s": lap.laps}))
+        print(json.dumps({"kernels": [row]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["41"]:
         glass = glass_train_phase(ci, card_line)
         lap("41 glass train step")
@@ -4216,9 +4388,16 @@ def main() -> int:
 
     # ---- 18. the bouncing train step ------------------------------------------
     b_train = train(ci, tiny, TINY_PATHS, reps=1)
+    # The train step renders inside `integrator.growing_queue`:
+    # every ray block on bounce 0, then only the blocks that hold live
+    # children, at least one a bounce; two shadow queries a traced block.
+    closest_n = b_train["launches"].get("closest_hit", 0)
+    if not n_blocks + n_bounces - 1 <= closest_n <= n_blocks * n_bounces:
+        raise AssertionError(f"bouncing train step: {closest_n} closest hits "
+                             f"for {n_blocks} blocks and {n_bounces} "
+                             f"bounces")
     check_launches(b_train["launches"],
-                   {"closest_hit": n_blocks * n_bounces,
-                    "any_hit": 2 * n_blocks * n_bounces},
+                   {"closest_hit": closest_n, "any_hit": 2 * closest_n},
                    "bouncing train step")
     print(f"bouncing fwd+bwd step {WIDTH}x{HEIGHT}: "
           f"{b_train['step_ms']:.3f} ms; peak "
@@ -4329,6 +4508,8 @@ def main() -> int:
     lap("40 index accumulation")
     glass = glass_train_phase(ci, card_line)
     lap("41 glass train step")
+    prepass, prepass_row = prepass_phase(ci, card_line)
+    lap("42 pre-pass kernel")
 
     # ---- report ----------------------------------------------------------------
     launches = {**flag["launches"], **{
@@ -4392,6 +4573,7 @@ def main() -> int:
                  "launches": {"frame": accum["frame_launches"],
                               "step": accum["step_launches"]},
                  **accum["calls"]})
+    rows.append(prepass_row)
 
     print(json.dumps({
         "card": card_line,
@@ -4420,7 +4602,7 @@ def main() -> int:
         "texture_paint": paint, "camera_pose": pose, "turntable": turntable,
         "trace": traced, "multidevice": md,
         "bvh_flagship": bvh, "dense_multimesh": dense,
-        "index_accumulate": accum, "glass_train": glass,
+        "index_accumulate": accum, "glass_train": glass, "prepass": prepass,
         "intersect_sass": walk_sass,
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
                    "k9_ab": kprobe["ab"], "k9_sass": kprobe["sass"],

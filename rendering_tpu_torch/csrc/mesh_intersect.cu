@@ -165,6 +165,25 @@
 // thread; ids, t and the counters equal the tile walk's and the plain
 // version's.
 //
+// The pre-pass (prepass_kernel, entry rt_prepass) builds every walk's
+// visit tables: per 512-ray tile, the supers some unresolved ray's exact
+// slab test finds live, nearest first. It replaces the JAX package's XLA
+// pre-pass rendering_tpu/ops/pallas_intersect.py::_tile_tables (no Pallas
+// kernel; plain PyTorch before, ops/cuda_intersect.py tile_tables, which
+// wrote every (tile, ray, super) intermediate to device memory and read
+// the device twice a chunk). Its inputs and outputs are small (a tile's
+// rays, the super boxes, one id per super and a count), so operations
+// bound it: 26 f32 instructions a slab test (cull_live: per axis 2 sub,
+// 2 mul, a min and a max, then the running bounds and the dead test's
+// compares, as the other slab bounds count them) over tiles x 512 x Cs
+// tests, at one per lane per clock (33.5e12/s on an H100 SXM). The design
+// keeps every intermediate on chip: a CTA a tile, its unresolved rays
+// packed in shared memory, threads owning supers and stopping at the
+// first live ray, then a bitonic sort of (key, id) as one u64 in shared
+// memory. The sort key (the super's squared distance from the tile's
+// live-ray centroid) comes in from PyTorch, whose reductions set its
+// bits. torder and counts equal tile_tables' bit for bit.
+//
 // TIMING variants (not launched by any render path) record each tile's
 // [%globaltimer start, end, %smid]: tools/anyhit_walk_torch.py and
 // tools/closest_walk_torch.py turn them into the longest and mean tile
@@ -997,6 +1016,123 @@ __global__ void __launch_bounds__(kRayTile, 2) closest_walk_kernel(const Args a)
   }
 }
 
+// ---- the pre-pass: per-tile live supers and their visit order -----------
+
+constexpr int kPrepassMaxSupers = 16384;  // (key, id) pairs: 128 KiB dynamic
+
+struct PrepassArgs {
+  const float* aux;      // (10, rp) rows ro xyz, rd xyz, 1/rd xyz, t0
+  const float* sbox;     // (cs, 8) super boxes [lo xyz, hi xyz, 0, 0]
+  const float* dist2;    // (n_tiles, cs) squared distance of each super's
+                         // centre from the tile's live-ray centroid
+  int* torder;           // (n_tiles, cs) visit order
+  int* counts;           // (n_tiles,) live supers
+  int rp, cs, p;         // p: the sort's width, a power of two >= cs
+  int group;             // threads a super, a power of two <= 32
+};
+
+// (key, id) as one u64 whose unsigned order is torch.argsort(stable=True)'s
+// over f32 keys: ascending, -0 equal to +0, every NaN after every number,
+// ties by id.
+__device__ __forceinline__ unsigned long long sort_key(float key, int id) {
+  unsigned u = __float_as_uint(key);
+  if (key != key) u = 0x7fffffffu;
+  else if (key == 0.0f) u = 0u;
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned)id;
+}
+
+// One staged ray's liveness against a super box: cull_live with t0 as the
+// running t, which is tile_live_exact's per-ray test, operation for
+// operation.
+__device__ __forceinline__ bool staged_live(const float* box,
+                                            const float4 (*s_ray)[2], int i) {
+  const float4 a = s_ray[i][0], b = s_ray[i][1];
+  const float o[3] = {a.x, a.y, a.z}, iv[3] = {b.x, b.y, b.z};
+  return cull_live(box, o, iv, a.w);
+}
+
+// One CTA a 512-ray tile. The tile's unresolved rays (t0 >= 0 or NaN)
+// are packed into shared memory; `group` threads own each super (more
+// than one where Cs is below 256), each testing every group-th packed ray
+// until one is live, the group ORed by shuffles. (Threads owning rays,
+// the warps looping over the supers with a vote each, took 1.10x as long
+// on the flagship's queries: PERF.md.) Then each super's key (dist2 if
+// live, else FLT_MAX) and id are sorted as one u64 by a bitonic sort
+// over p in shared memory, and the ids written in that order.
+__global__ void __launch_bounds__(kRayTile) prepass_kernel(const PrepassArgs a) {
+  extern __shared__ unsigned long long s_key[];  // (p,)
+  __shared__ float4 s_stage[kRayTile][2];  // packed rays [o, t0], [1/rd, 0]
+  __shared__ int s_n, s_live;
+  const int tile = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const long r = (long)tile * kRayTile + tid;
+  const float o[3] = {a.aux[r], a.aux[a.rp + r], a.aux[2L * a.rp + r]};
+  const float iv[3] = {a.aux[6L * a.rp + r], a.aux[7L * a.rp + r],
+                       a.aux[8L * a.rp + r]};
+  const float t0 = a.aux[9L * a.rp + r];
+  const bool held = !(t0 < 0.0f);  // resolved lanes add no liveness
+  if (tid == 0) s_n = s_live = 0;
+  __syncthreads();
+  int mine = 0;  // supers this thread found live
+  const unsigned vote = __ballot_sync(~0u, held);
+  int base = 0;
+  if (lane == 0 && vote) base = atomicAdd(&s_n, __popc(vote));
+  base = __shfl_sync(~0u, base, 0);
+  if (held) {
+    const int slot = base + __popc(vote & ((1u << lane) - 1u));
+    s_stage[slot][0] = make_float4(o[0], o[1], o[2], t0);
+    s_stage[slot][1] = make_float4(iv[0], iv[1], iv[2], 0.0f);
+  }
+  __syncthreads();
+  const int n = s_n, g = a.group, sub = tid & (g - 1);
+  for (int s0 = 0; s0 < a.cs; s0 += kRayTile / g) {
+    const int s = s0 + tid / g;
+    bool live = false;
+    if (s < a.cs) {
+      float box[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) box[k] = a.sbox[8L * s + k];
+      int i = box[0] > box[3] ? n : sub;  // a pad box is never live
+      for (; i + 3 * g < n; i += 4 * g) {
+        if (staged_live(box, s_stage, i) | staged_live(box, s_stage, i + g) |
+            staged_live(box, s_stage, i + 2 * g) |
+            staged_live(box, s_stage, i + 3 * g)) {
+          live = true;
+          break;
+        }
+      }
+      for (; !live && i < n; i += g) live = staged_live(box, s_stage, i);
+    }
+    for (int w = 1; w < g; w <<= 1) {
+      live = __shfl_xor_sync(~0u, (int)live, w) || live;
+    }
+    if (s < a.cs && sub == 0) {
+      mine += live;
+      s_key[s] = sort_key(live ? a.dist2[(long)tile * a.cs + s] : kFmax, s);
+    }
+  }
+  for (int s = a.cs + tid; s < a.p; s += kRayTile) s_key[s] = ~0ull;
+  if (mine) atomicAdd(&s_live, mine);
+  __syncthreads();
+  for (int k = 2; k <= a.p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < (a.p >> 1); i += kRayTile) {
+        const int lo = 2 * i - (i & (j - 1)), hi = lo + j;
+        const unsigned long long x = s_key[lo], y = s_key[hi];
+        if ((x > y) == ((lo & k) == 0)) {
+          s_key[lo] = y;
+          s_key[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = tid; i < a.cs; i += kRayTile) {
+    a.torder[(long)tile * a.cs + i] = (int)(unsigned)s_key[i];
+  }
+  if (tid == 0) a.counts[tile] = s_live;
+}
+
 // ---- launchers ------------------------------------------------------------
 
 // The tile walk's kernel for its flags (the fused any hit has none: an
@@ -1290,6 +1426,33 @@ int rt_resources(int walk, int anyhit, int fused, int root_filter, int stats,
     out[5] = n;
   }
   return (int)err;
+}
+
+// The pre-pass of one query (prepass_kernel): per 512-ray tile of the
+// prepared rays aux (10, rp), the live supers of sbox (cs, 8) in visit
+// order, torder (n_tiles, cs) int32, and their number, counts (n_tiles,)
+// int32, with the sort keys dist2 (n_tiles, cs) f32.
+int rt_prepass(const void* aux, const void* sbox, const void* dist2,
+               void* torder, void* counts, int n_tiles, int rp, int cs,
+               void* stream) {
+  if (n_tiles < 0 || cs < 0 || cs > kPrepassMaxSupers ||
+      rp != n_tiles * kRayTile) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_tiles == 0) return 0;
+  PrepassArgs a{(const float*)aux, (const float*)sbox, (const float*)dist2,
+                (int*)torder, (int*)counts, rp, cs, 1, 1};
+  while (a.p < cs) a.p <<= 1;
+  while (a.group < 32 && 2 * a.group * cs <= kRayTile) a.group <<= 1;
+  const size_t bytes = sizeof(unsigned long long) * (size_t)a.p;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        (const void*)prepass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  prepass_kernel<<<n_tiles, kRayTile, bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 const char* rt_error_string(int code) {

@@ -39,18 +39,20 @@ Pipeline of one query (`closest_hit` / `any_hit`):
 
   prepare    rays -> padded (10, Rp) rows [ro, rd, 1/rd, t0] and, per
              512-ray tile, the live super chunks in near-to-far order
-             (tile_tables: an exact per-ray slab test of every super
-             AABB, any() over the tile — the JAX package's XLA pre-pass,
-             plain torch here on every device), and the walks' tile
-             schedule (tile_schedule: heaviest first, the heavy tiles
-             counted).
+             (an exact per-ray slab test of every super AABB, any() over
+             the tile — the JAX package's XLA pre-pass: on CUDA tensors
+             the pre-pass kernel, `KERNELS["prepass"]`, one launch with
+             no host read; on CPU tensors its plain version tile_tables),
+             and the walks' tile schedule (tile_schedule: heaviest
+             first, the heavy tiles counted).
   kernel     walks each tile's live list (CUDA tensors) — or the plain
              version (CPU tensors): the TPU formulation vectorised over
              tiles, which the CPU tests hold against the Pallas kernel
              in interpret mode and the card holds against the kernel.
 
 In a recorded trace (`utils.tracing`) `prepare` is the span
-`rt.intersect.prepass` and each launch (or plain version) is
+`rt.intersect.prepass` (the counter `prepass_tiles` adds the tiles
+through the pre-pass kernel) and each launch (or plain version) is
 `rt.intersect.kernel`; building the tables is `rt.scene.tables`.
 
 The Pallas grid's step-table compaction (`_pair_tables`, the bucket
@@ -73,7 +75,7 @@ import torch
 
 from rendering_tpu_torch.ops.geometry import FLT_MAX as FMAX
 from rendering_tpu_torch.utils import nvcc
-from rendering_tpu_torch.utils.tracing import span, traced
+from rendering_tpu_torch.utils.tracing import count, span, traced
 
 RAY_TILE = 512              # rays per kernel CTA and per pre-pass tile
 SUB_PER_SUPER = 8           # cull chunks per super chunk
@@ -81,6 +83,10 @@ _PIECE = 64                 # the kernel stages triangles 64 at a time
 _CULL_REGS = 8              # the closest walk's cull chunks a super, at most
 _PREPASS_ELEMS = 1 << 24    # bound on (tiles, 512, Cs) pre-pass temporaries
 _PLAIN_TILES = 64           # tiles per batch of the plain version on the CPU
+# The pre-pass kernel sorts a tile's (key, id) pairs, 8 bytes each, over
+# the next power of two at or above Cs in dynamic shared memory: 128 KiB
+# at most, beside its 16 KiB of staged rays.
+PREPASS_MAX_SUPERS = 1 << 14
 # On a card the plain version's time is its Python loop (~30 launches per
 # visit rank and sub-chunk), so it batches as many tiles as keep each
 # (tiles, tc, 512) temporary at 2^24 elements.
@@ -333,19 +339,27 @@ def tile_live_exact(ro_t, inv_t, t0_t, box):
     return torch.cat(out)
 
 
-def tile_tables(ro_t, inv_t, t0_t, sbox):
-    """Per-tile live-first, near-to-far super visit order
-    (`pallas_intersect._tile_tables`). Returns (torder (n_tiles, Cs)
-    int32, counts (n_tiles,) int32). The sort key is the distance from
-    the centroid of the tile's live ray origins; dead supers key to FMAX
-    and, the sort being stable, keep id order behind the live ones."""
-    live = tile_live_exact(ro_t, inv_t, t0_t, sbox)
+def super_dist2(ro_t, t0_t, sbox):
+    """The visit order's sort key of a live super: the squared distance
+    of its box's centre from the centroid of the tile's live ray origins,
+    (n_tiles, Cs) f32. ro_t (n_tiles, 3, BR); t0_t (n_tiles, BR)."""
     lane = (t0_t >= 0).to(torch.float32)
     cnt = torch.clamp_min(lane.sum(dim=1), 1.0)
     centroid = (ro_t * lane[:, None, :]).sum(dim=2) / cnt[:, None]
     ccenter = (sbox[None, :, 0:3] + sbox[None, :, 3:6]) * 0.5
-    dist2 = ((ccenter - centroid[:, None, :]) ** 2).sum(dim=-1)
-    key = torch.where(live, dist2, FMAX)
+    return ((ccenter - centroid[:, None, :]) ** 2).sum(dim=-1)
+
+
+def tile_tables(ro_t, inv_t, t0_t, sbox):
+    """Per-tile live-first, near-to-far super visit order
+    (`pallas_intersect._tile_tables`). Returns (torder (n_tiles, Cs)
+    int32, counts (n_tiles,) int32). The sort key is the distance from
+    the centroid of the tile's live ray origins (`super_dist2`); dead
+    supers key to FMAX and, the sort being stable, keep id order behind
+    the live ones. The plain version of the pre-pass kernel
+    (`PrepassKernel`), which `prepare` runs on CPU tensors only."""
+    live = tile_live_exact(ro_t, inv_t, t0_t, sbox)
+    key = torch.where(live, super_dist2(ro_t, t0_t, sbox), FMAX)
     torder = torch.argsort(key, dim=1, stable=True).to(torch.int32)
     counts = live.sum(dim=1).to(torch.int32)
     return torder, counts
@@ -396,7 +410,9 @@ def prepare(tb: IntersectTables, ro3, rd3, t_limit=None) -> Prepared:
     """Pad rays to whole 512-ray tiles and run the pre-pass (the visit
     tables and the walks' tile schedule). Padded lanes have ro = 0, rd = 1
     and t0 = -1 (born resolved), as at `pallas_intersect.py:768-783`; 1/rd
-    is computed here, outside the kernel."""
+    is computed here, outside the kernel. The visit tables come from the
+    pre-pass kernel (`KERNELS["prepass"]`) on CUDA tensors, with no host
+    sync, and from its plain version (`tile_tables`) on CPU tensors."""
     R = ro3.shape[1]
     n_tiles = -(-R // RAY_TILE)
     rp = n_tiles * RAY_TILE
@@ -410,12 +426,18 @@ def prepare(tb: IntersectTables, ro3, rd3, t_limit=None) -> Prepared:
     t0 = torch.nn.functional.pad(t0, (0, pad), value=-1.0)
     inv = 1.0 / rd_p
     aux = torch.cat([ro_p, rd_p, inv, t0[None]], dim=0).contiguous()
-    torder, counts = tile_tables(
-        ro_p.reshape(3, n_tiles, RAY_TILE).transpose(0, 1),
-        inv.reshape(3, n_tiles, RAY_TILE).transpose(0, 1),
-        t0.reshape(n_tiles, RAY_TILE),
-        tb.sbox,
-    )
+    ro_t = ro_p.reshape(3, n_tiles, RAY_TILE).transpose(0, 1)
+    t0_t = t0.reshape(n_tiles, RAY_TILE)
+    if aux.is_cuda:
+        torder, counts = prepass_kernel(
+            aux, tb.sbox, super_dist2(ro_t, t0_t, tb.sbox).contiguous())
+        count("prepass_tiles", n_tiles)
+    else:
+        if dev.type != "cpu":
+            raise ValueError(f"no pre-pass for device {dev}")
+        torder, counts = tile_tables(
+            ro_t, inv.reshape(3, n_tiles, RAY_TILE).transpose(0, 1), t0_t,
+            tb.sbox)
     counts = counts.contiguous()
     return Prepared(aux, torder.contiguous(), counts, R,
                     *tile_schedule(counts))
@@ -612,6 +634,8 @@ def _library():
         lib.rt_tile_walk.restype = ctypes.c_int
         lib.rt_resources.argtypes = [i32] * 6 + [ptr]
         lib.rt_resources.restype = ctypes.c_int
+        lib.rt_prepass.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+        lib.rt_prepass.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -779,6 +803,62 @@ closest_hit_kernel = KERNELS["closest_hit"]
 any_hit_kernel = KERNELS["any_hit"]
 fused_closest_hit_kernel = KERNELS["fused_closest_hit"]
 fused_any_hit_kernel = KERNELS["fused_any_hit"]
+
+
+@dataclasses.dataclass
+class PrepassKernel:
+    """The pre-pass kernel (csrc/mesh_intersect.cu `prepass_kernel`):
+    `tile_tables` in one launch, one CTA a 512-ray tile, with no
+    (tiles, 512, Cs) temporary and no host read. It replaces the JAX
+    package's XLA pre-pass `pallas_intersect._tile_tables` (no Pallas
+    kernel). `launches` counts its launches; every `prepare` on CUDA
+    tensors makes one."""
+
+    name: str = "prepass"
+    launches: int = 0
+
+    def __call__(self, aux: torch.Tensor, sbox: torch.Tensor,
+                 dist2: torch.Tensor):
+        """(torder (n_tiles, Cs) int32, counts (n_tiles,) int32) of the
+        prepared rays aux (10, n_tiles * 512) f32 against the super boxes
+        sbox (Cs, 8) f32, with the live supers' sort keys dist2
+        (n_tiles, Cs) f32 (`super_dist2`), bit-equal to `tile_tables`."""
+        cs = sbox.shape[0] if sbox.dim() == 2 else -1
+        n_tiles = aux.shape[1] // RAY_TILE if aux.dim() == 2 else -1
+        for name, x, shape in (("aux", aux, (10, n_tiles * RAY_TILE)),
+                               ("sbox", sbox, (cs, 8)),
+                               ("dist2", dist2, (n_tiles, cs))):
+            if x.dtype != torch.float32 or not x.is_contiguous():
+                raise ValueError(f"{self.name}: {name} must be a contiguous "
+                                 f"float32 tensor, got {x.dtype}")
+            if tuple(x.shape) != shape or min(shape) < 0:
+                raise ValueError(f"{self.name}: {name} must be {shape} (aux "
+                                 f"(10, n_tiles * {RAY_TILE}), sbox (Cs, 8)), "
+                                 f"got {tuple(x.shape)}")
+        if cs > PREPASS_MAX_SUPERS:
+            raise ValueError(f"{self.name}: at most {PREPASS_MAX_SUPERS} "
+                             f"supers, got {cs}")
+        if not (aux.is_cuda and sbox.device == aux.device == dist2.device):
+            raise ValueError(f"{self.name}: aux, sbox and dist2 must be CUDA "
+                             f"tensors on one card, got {aux.device}, "
+                             f"{sbox.device}, {dist2.device}")
+        lib = _library()
+        torder = torch.empty((n_tiles, cs), dtype=torch.int32,
+                             device=aux.device)
+        counts = torch.empty((n_tiles,), dtype=torch.int32, device=aux.device)
+        with torch.cuda.device(aux.device):
+            rc = lib.rt_prepass(
+                aux.data_ptr(), sbox.data_ptr(), dist2.data_ptr(),
+                torder.data_ptr(), counts.data_ptr(), n_tiles, aux.shape[1],
+                cs, torch.cuda.current_stream(aux.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} launch failed: "
+                               f"{lib.rt_error_string(rc).decode()}")
+        self.launches += 1
+        return torder, counts
+
+
+prepass_kernel = KERNELS["prepass"] = PrepassKernel()
 
 
 def resources(name: str, *, cluster: int = CLOSEST_CLUSTER) -> dict:

@@ -13,6 +13,7 @@ machine without JAX; there, skip the JAX-pinning conftest:
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -932,3 +933,208 @@ def test_progress_render_on_card_matches_render(cuda):
     assert ci.KERNELS["any_hit"].launches == strips + ssaa
     np.testing.assert_allclose(frame, ref, atol=2e-6, rtol=3e-4)
     assert aux["ssaa_masked"] > 0
+
+
+# ---- the pre-pass kernel ---------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """The flagship scene at 128x64 with its 250k-triangle mesh on the
+    card (Cs = 489), built once for this file's pre-pass tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return build_flagship_scene(128, 64, n_tris=250_000, device="cuda")
+
+
+def _plain_tables(aux, sbox, dist2=None):
+    """tile_tables, the plain pre-pass, on prepared rows aux (on the
+    card: PyTorch's kernels); dist2 is the kernel's argument, unused."""
+    rows = aux.reshape(10, -1, ci.RAY_TILE).transpose(0, 1)
+    return ci.tile_tables(rows[:, 0:3], rows[:, 6:9], rows[:, 9], sbox)
+
+
+def _check_prepass(tb, prep):
+    """The visit tables `prepare` made on the card (the kernel's) equal
+    tile_tables' bit for bit; so do two more launches of the kernel on
+    the same inputs. Returns the live counts."""
+    torder, counts = _plain_tables(prep.aux, tb.sbox)
+    torch.cuda.synchronize()
+    assert prep.torder.dtype == prep.counts.dtype == torch.int32
+    assert torch.equal(prep.torder, torder)
+    assert torch.equal(prep.counts, counts)
+    rows = prep.aux.reshape(10, prep.n_tiles, ci.RAY_TILE).transpose(0, 1)
+    dist2 = ci.super_dist2(rows[:, 0:3], rows[:, 9], tb.sbox).contiguous()
+    for _ in range(2):
+        out = ci.KERNELS["prepass"](prep.aux, tb.sbox, dist2)
+        assert torch.equal(out[0], torder)
+        assert torch.equal(out[1], counts)
+    return counts
+
+
+@pytest.mark.cuda
+def test_prepass_kernel_matches_plain_on_flagship_render(cuda, flagship,
+                                                         monkeypatch):
+    """Every pre-pass of a flagship render (the 250k mesh: its primary
+    rays and its batched shadow rays) on the kernel equals the plain
+    tile_tables on the same card inputs, and each `prepare` launched the
+    kernel once."""
+    tb = flagship.meshes[0].itables
+    seen = []
+    real = ci.prepare
+
+    def record(tables, ro3, rd3, t_limit=None):
+        prep = real(tables, ro3, rd3, t_limit)
+        seen.append((tables, prep))
+        return prep
+
+    monkeypatch.setattr(ci, "prepare", record)
+    before = ci.KERNELS["prepass"].launches
+    with torch.no_grad():
+        render_scene(flagship)
+    torch.cuda.synchronize()
+    assert len(seen) >= 2
+    assert ci.KERNELS["prepass"].launches == before + len(seen)
+    for tables, prep in seen:
+        assert tables.sbox.shape[0] == tb.sbox.shape[0] == 489
+        assert int(_check_prepass(tables, prep).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_limit", [False, True])
+def test_prepass_kernel_matches_plain_with_and_without_limits(cuda, flagship,
+                                                              with_limit):
+    """Rays at and around the flagship mesh on a ragged tile count, with
+    and without t_limit (resolved lanes among the limits)."""
+    tb = flagship.meshes[0].itables
+    ro, rd, tl = (x.to(cuda) for x in _rays(12 * 512 + 77, seed=21))
+    prep = ci.prepare(tb, ro, rd, tl if with_limit else None)
+    counts = _check_prepass(tb, prep)
+    assert 0 < int(counts.sum()) < prep.n_tiles * tb.sbox.shape[0]
+
+
+@pytest.mark.cuda
+def test_prepass_kernel_matches_plain_on_edge_rays(cuda, flagship):
+    """A ragged last tile, resolved lanes (t0 < 0) and a wholly resolved
+    tile, NaN limits, rays with zero direction components starting on
+    super box planes (NaN slabs, kept live), and pad boxes (lo.x > hi.x,
+    never live)."""
+    tb = flagship.meshes[0].itables
+    sbox = tb.sbox.cpu().numpy()
+    pads = np.arange(5, sbox.shape[0], 40)
+    padded = sbox.copy()
+    padded[pads, 0] = padded[pads, 3] + 1.0
+    tbp = dataclasses.replace(tb, sbox=torch.from_numpy(padded).to(cuda))
+    n = 6 * 512 + 77
+    ro, rd, tl = (x.numpy() for x in _rays(n, seed=22))
+    k = np.arange(512) % sbox.shape[0]
+    axis = np.arange(512) % 3
+    ro_nan = ((sbox[k, 0:3] + sbox[k, 3:6]) * 0.5).T.copy()
+    rd_nan = np.zeros((3, 512), np.float32)
+    for c in range(3):
+        m = axis == c
+        ro_nan[c, m] = sbox[k[m], c]
+        rd_nan[(c + 1) % 3, m] = 1.0
+    ro[:, 512:1024], rd[:, 512:1024], tl[512:1024] = ro_nan, rd_nan, 10.0
+    tl[1024:1536] = -1.0
+    tl[1536:1540] = np.nan
+    with np.errstate(divide="ignore", invalid="ignore"):
+        assert np.isnan((sbox[k, 0] - ro_nan[0]) / rd_nan[0]).any()
+    ro, rd, tl = (torch.from_numpy(x).to(cuda) for x in (ro, rd, tl))
+    for tables in (tb, tbp):
+        prep = ci.prepare(tables, ro, rd, tl)
+        counts = _check_prepass(tables, prep).cpu()
+        assert int(counts[2]) == 0
+        assert torch.equal(prep.torder[2].cpu(),
+                           torch.arange(tb.sbox.shape[0], dtype=torch.int32))
+        assert int(counts[1]) == tb.sbox.shape[0] - (
+            len(pads) if tables is tbp else 0)
+    live = torch.zeros(tb.sbox.shape[0], dtype=torch.bool)
+    for i in range(prep.n_tiles):
+        live[prep.torder[i, :int(counts[i])].long().cpu()] = True
+    assert not live[torch.from_numpy(pads)].any()
+
+
+@pytest.mark.cuda
+def test_prepass_kernel_matches_plain_on_other_super_counts(cuda, flagship):
+    """Other Cs values through the same kernel: the 16-mesh scene's fused
+    tables, `slice_supers` ranges of the flagship tables (K6's halves,
+    a short range, a single super), and synthetic box sets above 512
+    supers and above 48 KiB of sort keys."""
+    scene = build_multimesh_scene(96, 54, n_meshes=16, tris_per_mesh=2000,
+                                  device=cuda)
+    geo = scene.fused_itables.geo
+    ro, rd, tl = (x.to(cuda) for x in _multimesh_rays(8 * 512 + 77, seed=23))
+    assert int(_check_prepass(geo, ci.prepare(geo, ro, rd, tl)).sum()) > 0
+    tb = flagship.meshes[0].itables
+    ro, rd, tl = (x.to(cuda) for x in _rays(8 * 512 + 77, seed=24))
+    for lo, hi in ((0, 245), (245, 489), (7, 40), (100, 101)):
+        part = ci.slice_supers(tb, lo, hi)
+        _check_prepass(part, ci.prepare(part, ro, rd, tl))
+    rng = np.random.default_rng(25)
+    for cs in (1500, 7000):
+        lo = rng.normal(0, 2, (cs, 3)).astype(np.float32)
+        hi = lo + rng.uniform(0.01, 1.0, (cs, 3)).astype(np.float32)
+        sbox = np.concatenate([lo, hi, np.zeros((cs, 2), np.float32)], 1)
+        fake = ci.IntersectTables(64, 8, None, None,
+                                  torch.from_numpy(sbox).to(cuda))
+        counts = _check_prepass(fake, ci.prepare(fake, ro, rd, tl))
+        assert 0 < int(counts.sum()) < counts.numel() * cs
+
+
+@pytest.mark.cuda
+def test_queries_bit_equal_with_the_prepass_kernel(cuda, flagship,
+                                                   monkeypatch):
+    """closest_hit, any_hit and the two-phase any hit on the flagship
+    tables return bit-equal results with the kernel's visit tables and
+    with the plain ones; `prepare` launches the kernel once a call."""
+    tb = flagship.meshes[0].itables
+    ro, rd, tl = (x.to(cuda) for x in _rays(16 * 512 + 77, seed=26))
+    kernel = ci.KERNELS["prepass"]
+
+    def queries():
+        return (ci.closest_hit(tb, ro, rd), ci.closest_hit(tb, ro, rd, tl),
+                (ci.any_hit(tb, ro, rd, tl),),
+                (ci.any_hit_two_phase(tb, ro, rd, tl, frac=0.5),))
+
+    before = kernel.launches
+    after = queries()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 5
+
+    monkeypatch.setattr(ci, "prepass_kernel", _plain_tables)
+    plain = queries()
+    assert kernel.launches == before + 5
+    assert int((after[0][1] >= 0).sum()) > 100
+    assert 100 < int(after[2][0].sum()) < len(ro[0]) - 100
+    for a, b in zip(after, plain):
+        for x, y in zip(a, b):
+            assert (_bits_equal(x, y) if x.is_floating_point()
+                    else torch.equal(x, y))
+
+
+@pytest.mark.cuda
+def test_prepare_on_card_reads_nothing_back_and_counts_tiles(cuda, flagship):
+    """`prepare` on the card makes no host sync (PyTorch's sync debug
+    mode raises on one), and under a recording profiler the tracing
+    counter `prepass_tiles` adds the tiles it sent through the kernel."""
+    from rendering_tpu_torch.utils import tracing
+
+    tb = flagship.meshes[0].itables
+    ro, rd, tl = (x.to(cuda) for x in _rays(8 * 512 + 77, seed=27))
+    ci.prepare(tb, ro, rd, tl)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prep = ci.prepare(tb, ro, rd, tl)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _check_prepass(tb, prep)
+    tracing.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        ci.prepare(tb, ro, rd, tl)
+        ci.prepare(tb, ro[:, :600], rd[:, :600], tl[:600])
+    torch.cuda.synchronize()
+    assert tracing.counters()["prepass_tiles"] == prep.n_tiles + 2
+    tracing.reset()

@@ -311,3 +311,104 @@ def _mt_numpy(tri, ro, rd):
          tv[:, 0] * e1[:, 1] - tv[:, 1] * e1[:, 0]]
     return ((e2[:, 0] * q[0] + e2[:, 1] * q[1]) + e2[:, 2] * q[2]) * (
         np.float32(1.0) / det)
+
+
+@pytest.mark.parametrize("with_limit", [True, False])
+def test_prepare_on_cpu_runs_the_plain_tables(scenes, monkeypatch,
+                                              with_limit):
+    """On CPU tensors `prepare` takes the plain version, `tile_tables`,
+    and launches nothing: its visit tables equal tile_tables' on the same
+    padded rows, and the kernel library is never built."""
+    _, ts = scenes
+    tb = ts.meshes[0].itables
+    n = 3 * 512 + 77
+    ro, rd = _rays(n, seed=15)
+    tl = torch.from_numpy(_limits(n, seed=16)) if with_limit else None
+
+    def no_library():
+        raise AssertionError("the CPU pre-pass built the kernel library")
+
+    monkeypatch.setattr(ci, "_library", no_library)
+    before = ci.KERNELS["prepass"].launches
+    prep = ci.prepare(tb, torch.from_numpy(ro), torch.from_numpy(rd), tl)
+    assert ci.KERNELS["prepass"].launches == before
+    rows = prep.aux.reshape(10, prep.n_tiles, 512).transpose(0, 1)
+    torder, counts = ci.tile_tables(rows[:, 0:3], rows[:, 6:9], rows[:, 9],
+                                    tb.sbox)
+    assert torch.equal(prep.torder, torder)
+    assert torch.equal(prep.counts, counts)
+    assert prep.torder.dtype == prep.counts.dtype == torch.int32
+    assert int(counts.sum()) > 0
+
+
+def _prepass_inputs(n_tiles=2, cs=5):
+    aux = torch.zeros((10, n_tiles * 512))
+    sbox = torch.zeros((cs, 8))
+    dist2 = torch.zeros((n_tiles, cs))
+    return aux, sbox, dist2
+
+
+@pytest.mark.parametrize("case", [
+    "aux_dtype", "sbox_dtype", "dist2_dtype", "aux_rows", "aux_ragged",
+    "sbox_cols", "dist2_tiles", "dist2_supers", "aux_1d",
+    "sbox_noncontiguous", "too_many_supers", "cpu"])
+def test_prepass_kernel_refuses_what_it_does_not_take(monkeypatch, case):
+    """The pre-pass kernel's wrapper checks every input before it builds
+    or launches anything: f32, contiguous, aux (10, n_tiles * 512), sbox
+    (Cs, 8), dist2 (n_tiles, Cs), Cs within PREPASS_MAX_SUPERS, all on
+    one card."""
+    aux, sbox, dist2 = _prepass_inputs()
+    if case == "aux_dtype":
+        aux = aux.double()
+    elif case == "sbox_dtype":
+        sbox = sbox.half()
+    elif case == "dist2_dtype":
+        dist2 = dist2.to(torch.int32)
+    elif case == "aux_rows":
+        aux = torch.zeros((9, 1024))
+    elif case == "aux_ragged":
+        aux = torch.zeros((10, 1000))
+    elif case == "sbox_cols":
+        sbox = torch.zeros((5, 6))
+    elif case == "dist2_tiles":
+        dist2 = torch.zeros((3, 5))
+    elif case == "dist2_supers":
+        dist2 = torch.zeros((2, 4))
+    elif case == "aux_1d":
+        aux = torch.zeros((10 * 1024,))
+    elif case == "sbox_noncontiguous":
+        sbox = torch.zeros((8, 5)).t()
+    elif case == "too_many_supers":
+        cs = ci.PREPASS_MAX_SUPERS + 1
+        sbox, dist2 = torch.zeros((cs, 8)), torch.zeros((2, cs))
+
+    def no_library():
+        raise AssertionError("built the library before checking inputs")
+
+    monkeypatch.setattr(ci, "_library", no_library)
+    kernel = ci.KERNELS["prepass"]
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA" if case == "cpu" else
+                       "must be|at most"):
+        kernel(aux, sbox, dist2)
+    assert kernel.launches == before
+
+
+def test_super_dist2_is_the_tables_sort_key(scenes):
+    """tile_tables orders each tile by super_dist2 for live supers, FMAX
+    for dead ones, stably: the key the pre-pass kernel takes in."""
+    _, ts = scenes
+    tb = ts.meshes[0].itables
+    ro, rd = _rays(1024, seed=17)
+    prep = ci.prepare(tb, torch.from_numpy(ro), torch.from_numpy(rd),
+                      torch.from_numpy(_limits(1024, seed=18)))
+    rows = prep.aux.reshape(10, prep.n_tiles, 512).transpose(0, 1)
+    live = ci.tile_live_exact(rows[:, 0:3], rows[:, 6:9], rows[:, 9],
+                              tb.sbox)
+    key = torch.where(live, ci.super_dist2(rows[:, 0:3], rows[:, 9],
+                                           tb.sbox), FMAX)
+    assert key.shape == (prep.n_tiles, tb.sbox.shape[0])
+    assert key.dtype == torch.float32
+    want = torch.argsort(key, dim=1, stable=True).to(torch.int32)
+    assert torch.equal(prep.torder, want)
+    assert torch.equal(prep.counts, live.sum(dim=1).to(torch.int32))
