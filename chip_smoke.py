@@ -84,16 +84,11 @@ of the tables):
     ray block and bounce, rays_casted equal to the JAX package's count,
     no path dropped; prints each bounce's time and live lanes and the
     peak memory, and times the frame; keeps the middle block's first
-    shadow query; then renders it once on each any-hit walk under
-    torch.profiler (tools/anyhit_walk_torch.py: the any-hit kernels'
-    device time per bounce, point+distant and area batch apart, and the
-    frame's idle share) and holds three of its shadow queries (bounce
-    0's middle point+distant and area queries, bounce 2's point+distant
-    one with the most live tile-super pairs) to the plain version and
-    the tile walk; then likewise for the closest hits on the tile walk
-    and the closest walk (tools/closest_walk_torch.py: the closest-hit
-    kernels' device time per bounce), holding bounce 0's middle and
-    bounce 2's heaviest closest-hit queries to the plain version;
+    shadow query, three more of its shadow queries (bounce 0's middle
+    point+distant and area queries, bounce 2's point+distant one with
+    the most live tile-super pairs) and two of its closest-hit queries
+    (bounce 0's middle one and bounce 2's with the most live tile-super
+    pairs), and holds each of the five to the plain version;
 15. whole-render parity at 384x216 with SSAA and the counters on, at
     anyhit_compact_frac 0 and 0.5, kernels vs plain versions; the two
     fracs' frames bit-equal;
@@ -119,31 +114,26 @@ pair test's product in f32 and TF32), through their two tools:
 21. runs tools/microbench_kernel_torch.py's measurement (K8's two forms,
     a CTA per step and the loop of one CTA per SM, at 1, 16384 and 4096
     steps; a one-CTA launch beside x.clone(), y.copy_(x) and torch.neg;
-    K9's two forms at the JAX tool's eleven configurations and the four
-    epilogue ones at TF32) likewise; holds both K8 forms against a copy,
-    K9's packing pass and recurrence against their plain versions (bit
-    for bit) and both K9 forms at every configuration against the plain
+    K9 at the JAX tool's eleven configurations and the four epilogue
+    ones at TF32) likewise; holds both K8 forms against a copy, K9's
+    packing pass and recurrence against their plain versions (bit for
+    bit) and K9 at every configuration against the plain
     version on seeded normal data (highest bit-equal, default within the
     TF32 limits, which must reject an f32 product and inputs truncated to
-    TF32); prints A/B lines at the first configuration (the first form,
-    the second twice, the first again, by mean_ms) and the SASS of both
-    forms (instructions and shared loads per product term in the k loop,
-    the epilogue's instructions per pair); times the plain versions,
+    TF32); times the plain versions,
     x.clone() (K8's library time) and torch.bmm on the 64 tables (K9's);
     then prints the measured f32 and HBM rates beside F32_OPS_RATE and
     HBM_RATE, and each K1-K6 row's share of its operations bound at both
     rates.
 
 The any-hit walk (csrc/mesh_intersect.cu `anyhit_walk_kernel`, every
-any hit of every path) and the tile walk it replaced (`any_hit_tile_walk*`,
-launched only here and by the tools):
+any hit of every path):
 
 22. the seeded adversarial shadow queries of ops/shadow_cases.py
     (interleaved pre-resolved lanes, rays leaving the mesh at the scene's
     bias, rays grazing cull-box faces; tests/test_torch_anyhit_walk.py's
     seeds and 2000-triangle mesh) at 262,144 rays: every single-mesh
-    any-hit variant on both walks against its plain version, 0
-    mismatches;
+    any-hit variant against its plain version, 0 mismatches;
 23. a transparent 5k mesh beside an opaque 20k one (build_tiny_scene's
     layout, SSAA and the counters on, 384x216): the shadow tables hold
     only the opaque mesh, only the fused kernels with counters launch,
@@ -262,20 +252,21 @@ when they share it, and is no scaling figure):
     (the fused root-filter kernels on each rank's shard): each BMP
     within test_golden.py's default limits of phase 24's.
 
-The intersection oracles without the tile-walk kernels
+The intersection oracles without the mesh kernels
 (settings.use_pallas_intersect=False, the JAX package's own switch):
 
 38. the flagship (250k, 3840x1080) built with use_pallas_intersect=False:
     above bruteforce_threshold, so every query walks the BVH through the
     `bvh_closest` kernel (csrc/bvh_walk.cu), once per ray block for the
     closest hits and once for the shadow rays, no other kernel; the frame
-    timed in turns with the tile walk's on the same tensors (tile, walk,
-    walk, tile; mean of 2 after a warm-up each); the middle block's two
+    timed in turns with the mesh kernels' on the same tensors (kernels,
+    walk, walk, kernels; mean of 2 after a warm-up each); the middle
+    block's two
     queries through the kernel against the plain walk on the card (ids,
     t, u, v bit-equal, counters equal), the plain walk's time there, the
     kernel's time and bound (its slab and pair tests at F32_OPS_RATE);
     the u8 frame against phase 1's (differing values printed); every
-    primary ray's hit against the tile walk's, each differing one a tie
+    primary ray's hit against the mesh kernels', each differing one a tie
     (both t bit-equal through ray_triangle_r); a train step with its
     repeat bit-equal and its loss and gradients within rtol 1e-4 (atol
     1e-4 max|g|) of phase 5's;
@@ -328,21 +319,13 @@ query's visit tables):
     phase alone.
 
 Every query a phase holds to its plain version (phases 3, 7, 11, 12, 13,
-14, 16, 23) is also timed against the tile walk its kernel replaced, in
-turns (tile, new, new, tile; `ms` is the new walk's, `tile_walk_ms` the
-tile walk's): an any hit on the any-hit walk, a closest hit on the
-closest walk (csrc/mesh_intersect.cu `closest_walk_kernel`: a tile
-split by rays over a thread block cluster; `*closest_hit_tile_walk*`
-is the walk it replaced, launched only here and by the tools), which
-is also timed at every cluster size in turns (`cluster_ms`). Each row
-carries the work counts of the plain version (pairs, union_pairs,
-warp_pairs, packed_pairs, tile_union_max), the union and heaviest-tile
-bounds, and each walk's tile timeline (longest and mean tile, the tail
-from the 95th-percentile tile end, CTAs per SM, resident clusters,
-registers, spills). The build prints, per intersection kernel, the
-SASS instructions and shared loads per ray-triangle pair in its pair
-loop. Every render, train and CLI path's launch check requires 0
-launches of every tile-walk variant.
+14, 16, 23) is also timed on its walk (`ms`) beside the plain version
+and the bound, and a closest hit is held to it at every cluster size.
+Each row carries the work counts of the plain version (pairs,
+union_pairs, warp_pairs, packed_pairs, tile_union_max), the union and
+heaviest-tile bounds, and the walk's resources (CTAs per SM, resident
+clusters, registers, spills). PERF.md section 6 keeps how the walks
+were measured against the one-CTA-a-tile walk they replaced.
 
 Each phase prints its duration. Every time comes from
 `utils.timer.mean_ms` (CUDA events, the launches queued behind a ~2 ms
@@ -370,6 +353,11 @@ import time
 import torch
 
 from rendering_tpu_torch.device import describe_card
+from rendering_tpu_torch.ops.microbench import (
+    F32_FLOPS_RATE,
+    F32_OPS_RATE,
+    HBM_RATE,
+)
 from rendering_tpu_torch.utils.timer import mean_ms
 
 N_TRIS = 250_000
@@ -387,12 +375,6 @@ BENCH_PATHS = (("lights", 0, "intensity"), ("obj_color",), ("meshes", 0, "v"))
 # the first two visible ones.
 MM_PATHS = (("lights", 0, "intensity"), ("obj_color",), ("meshes", 4, "v"),
             ("meshes", 5, "v"))
-HBM_RATE = 3.35e12      # H100 SXM bytes/s
-# The kernels are built with -fmad=false, so every f32 multiply, add and
-# compare issues on its own: one per lane per clock, 132 SMs x 128 lanes
-# x 1.98 GHz = 33.5e12/s, half the data sheet's 67 TFLOP/s (which counts
-# an FMA as two operations).
-F32_OPS_RATE = 67e12 / 2
 SMS = 132               # H100 SXM: one tile's bound is at 1/SMS of the rate
 # f32 instructions per ray-triangle pair in the kernels' inner loop
 # (csrc/mesh_intersect.cu): cross products p and q, 2 x (6 mul + 3 sub);
@@ -418,7 +400,6 @@ TRITON_SOURCE = "rendering_tpu_torch/ops/microbench_triton.py"
 TPU_FMA = "tools/microbench_vpu.py:65"
 TPU_GRID = "tools/microbench_kernel.py:61"
 TPU_MATMUL = "tools/microbench_kernel.py:127"
-F32_FLOPS_RATE = 67e12      # H100 SXM f32, an FMA counted as 2 FLOPs
 # K7's fused variant and its Triton twin should equal the plain version bit
 # for bit, as the unfused variant must; at most this share of the values
 # may differ (a contraction placed otherwise).
@@ -588,7 +569,7 @@ MD_TIMEOUT_S = 400
 # Sharded gradients against the single-device step's: rtol, and atol
 # rtol * max|g| (tests/test_torch_parallel.py's limits).
 GRAD_RTOL = 1e-4
-# The oracles without the tile-walk kernels (phases 38-39): the rays of
+# The oracles without the mesh kernels (phases 38-39): the rays of
 # the middle block's queries that the plain BVH walk runs on (all of
 # them: 0.7-0.8 s a query on an H100, PERF.md), and the size of the
 # dense 16-mesh frames, a quarter of phase 6's pixels (the direct dense
@@ -719,44 +700,28 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
     """Times of the kernel, its plain version and the pre-pass on a
     prepared query of the main path, and the kernel's bound from this
     query's work. Also checks the kernel against its plain version on the
-    whole query. Every query is timed against the tile walk its kernel
-    replaced, in turns (tile, new, new, tile; `ms` the new walk's mean,
-    `tile_walk_ms` the tile walk's), which must agree with the plain
-    version too: an any hit on the any-hit walk, a closest hit on the
-    closest walk at CLOSEST_CLUSTER CTAs per tile (and at every cluster
-    size in turns, `cluster_ms`). Its row adds the work counts
-    (union_pairs, warp_pairs, packed_pairs, tile_union_max), the live
-    supers a tile (mean, max), the union and heaviest-tile bounds, and
-    the walks' tile timelines and resources."""
+    whole query, a closest hit at every cluster size (CLUSTER_SIZES). Its
+    row adds the work counts (union_pairs, warp_pairs,
+    packed_pairs, tile_union_max), the live supers a tile (mean, max),
+    the union and heaviest-tile bounds, and the walk's resources."""
     kw = flags(ci, name)
     stats: dict = {}
     out_p = plain(ci, tables, prep, bfc, stats, **kw)
-    if kw["anyhit"]:
-        walk = tool("anyhit_walk_torch").walk_ab(name, tables, prep, bfc,
-                                                 out_p)
-        ab = walk["ab_ms"]
-        print(f"A/B {name} ({prep.n_rays} rays): tile walk {ab[0]:.5f}, "
-              f"packed walk {ab[1]:.5f}, {ab[2]:.5f}, tile walk {ab[3]:.5f} "
-              f"ms (packed walk at as many CTAs per SM as fit "
-              f"{walk['packed_fit_ms']:.5f} ms); tiles: tile walk "
-              f"{json.dumps(walk['tile_timeline'])}, packed walk "
-              f"{json.dumps(walk['packed_timeline'])}")
-    else:
-        cw = tool("closest_walk_torch")
-        walk = cw.walk_ab(name, tables, prep, bfc, out_p)
-        ab = walk["ab_ms"]
-        print(f"A/B {name} ({prep.n_rays} rays): tile walk {ab[0]:.5f}, "
-              f"closest walk {ab[1]:.5f}, {ab[2]:.5f}, tile walk "
-              f"{ab[3]:.5f} ms (by CTAs per tile, in turns: "
-              f"{json.dumps(walk['cluster_ms'])}); tiles: tile walk "
-              f"{json.dumps(walk['tile_timeline'])}, closest walk "
-              f"{json.dumps(walk[cw.SHIPPED + '_timeline'])}")
-    ms = walk["ms"]
-    plain_ms = mean_ms(lambda: plain(ci, tables, prep, bfc, **kw), reps=1)
     out_k = launch(ci, tables, prep, bfc, **kw)
     if not same(out_k, out_p):
         raise AssertionError(f"{name} disagrees with its plain "
                              f"version at the main path's shape")
+    if not kw["anyhit"]:
+        fused = isinstance(tables, ci.FusedTables)
+        for g in ci.CLUSTER_SIZES:
+            out_g = ci.KERNELS[name](
+                tables.geo if fused else tables, prep, backface_culling=bfc,
+                idmap=tables.idmap if fused else None, cluster=g)
+            if not same(out_g, out_p):
+                raise AssertionError(f"{name} at {g} CTAs a cluster "
+                                     f"disagrees with its plain version")
+    ms = mean_ms(lambda: launch(ci, tables, prep, bfc, **kw), reps=20)
+    plain_ms = mean_ms(lambda: plain(ci, tables, prep, bfc, **kw), reps=1)
     n, aux = prep.n_rays, prep.aux
     geo = tables.geo if isinstance(tables, ci.FusedTables) else tables
     prepass_ms = mean_ms(
@@ -774,7 +739,7 @@ def kernel_numbers(ci, name, tables, prep, bfc) -> dict:
                              / F32_OPS_RATE * 1e3)
     out["tile_bound_ms"] = (stats["tile_union_max"] * OPS_PER_PAIR
                             / (F32_OPS_RATE / SMS) * 1e3)
-    out.update(walk)
+    out["resources"] = ci.resources(name)
     return out
 
 
@@ -1095,6 +1060,49 @@ def timed_bounces(it, out: list):
         it._bounce = real
 
 
+def bouncing_queries(ci, scene, n_blocks: int) -> tuple[dict, dict]:
+    """One more forward render of the bouncing scene, keeping the (tables,
+    prepared query) of five of its queries. A frame runs, per ray block
+    and bounce, one closest hit and two any hits (point+distant, then
+    area). Returns the any hits of bounce 0's middle block
+    (`bounce0_point_distant`, `bounce0_area`) and bounce 2's
+    point+distant query with the most live (tile, super) pairs
+    (`bounce2_point_distant`), and the closest hits of bounce 0's middle
+    block (`bounce0`) and bounce 2's heaviest (`bounce2`)."""
+    from rendering_tpu_torch.render.pipeline import render_scene
+
+    seen = {False: 0, True: 0}
+    kept_b: dict = {}
+    kept_c: dict = {}
+    heaviest = {False: -1, True: -1}
+    mid = n_blocks // 2
+
+    def route(real, tables, prep, backface_culling, **kw):
+        anyhit = kw["anyhit"]
+        bounce, rest = divmod(seen[anyhit], (2 if anyhit else 1) * n_blocks)
+        block, batch = divmod(rest, 2) if anyhit else (rest, 0)
+        seen[anyhit] += 1
+        if bounce == 0 and block == mid:
+            if anyhit:
+                name = ("bounce0_point_distant", "bounce0_area")[batch]
+                kept_b[name] = (tables, prep)
+            else:
+                kept_c["bounce0"] = (tables, prep)
+        elif bounce == 2 and batch == 0:
+            live = int(prep.counts.sum())
+            if live > heaviest[anyhit]:
+                heaviest[anyhit] = live
+                if anyhit:
+                    kept_b["bounce2_point_distant"] = (tables, prep)
+                else:
+                    kept_c["bounce2"] = (tables, prep)
+        return real(tables, prep, backface_culling=backface_culling, **kw)
+
+    with torch.no_grad(), routed_queries(ci, route):
+        render_scene(scene)
+    return kept_b, kept_c
+
+
 def expected_rays(scene, lanes: int) -> int:
     """rays_casted of a bouncing render by the JAX package's count: every
     bounce traces all `lanes` queue lanes, then for each lane one shadow
@@ -1137,7 +1145,6 @@ def two_phase_numbers(ci, tb, ro3, rd3, t_limit, frac: float, bfc) -> dict:
         "resolved_in_phase1": int(occ1.sum()), "phases": phases,
         "ms": sum(p["ms"] for p in phases),
         "plain_ms": sum(p["plain_ms"] for p in phases),
-        "tile_walk_ms": sum(p["tile_walk_ms"] for p in phases),
         "bound_ms": sum(p["bound_ms"] for p in phases),
         "bound_by": ("operations" if all(p["bound_by"] == "operations"
                                          for p in phases) else "bytes"),
@@ -1311,47 +1318,6 @@ def replaces(name: str) -> str:
     return TPU_FUSED if name.startswith("fused") else TPU_KERNEL
 
 
-SASS_OPS = ("FFMA", "FMUL", "FADD", "HMMA", "HGMMA", "LDS", "MUFU")
-
-
-def sass_counts(path: str) -> dict:
-    """f32, tensor-core, shared-load and MUFU instructions of each kernel in
-    a built library, counted in its SASS (cuobjdump -sass): shows that
-    nvcc kept the probes' arithmetic (every product row of K9, both K7
-    variants). Per kernel also its instruction count (`total`) and, in its
-    basic block with the most FMULs (K9's k loop: one FMUL a product
-    term), the instructions and shared loads per term (`loop_per_term`,
-    `loop_lds_per_term`). Empty where the toolkit has no cuobjdump."""
-    import re
-
-    instrs = tool("closest_walk_torch").sass_by_kernel(path)
-    counts: dict = {}
-    for fn, code in instrs.items():
-        c = counts[fn] = {**dict.fromkeys(SASS_OPS, 0), "total": len(code)}
-        # Basic blocks start at branch targets and after branches.
-        leaders = {int(t, 16) for _, text in code
-                   for t in re.findall(r"\bBRA\b.*?0x([0-9a-f]+)", text)}
-        blocks, prev_branch = [], True
-        for addr, text in code:
-            if prev_branch or addr in leaders:
-                blocks.append([0, 0, 0, 0])   # instructions, FMUL, FADD, LDS
-            prev_branch = bool(re.search(r"\b(BRA|EXIT|RET)\b", text))
-            blocks[-1][0] += 1
-            for op in SASS_OPS:
-                if re.search(rf"\b{op}(\.\S+)?\b", text):
-                    c[op] += 1
-            blocks[-1][1] += bool(re.search(r"\bFMUL\b", text))
-            blocks[-1][2] += bool(re.search(r"\bFADD\b", text))
-            blocks[-1][3] += bool(re.search(r"\bLDS(\.\S+)?\b", text))
-        # The k loop: the block with the most multiply-add pairs.
-        total, fmul, _, lds = max(blocks, key=lambda b: min(b[1], b[2]),
-                                  default=(0, 0, 0, 0))
-        if fmul:
-            c.update(loop_terms=fmul, loop_per_term=total / fmul,
-                     loop_lds_per_term=lds / fmul)
-    return counts
-
-
 @functools.cache
 def tool(name: str, folder: str = "tools"):
     """<folder>/<name>.py (tools/ or examples/) as a module."""
@@ -1441,11 +1407,11 @@ def pair_inputs(tc, br, k, epilogue, seed):
     return feats, coef, o_init
 
 
-def pair_parity(mb, cfg, n_steps, seed) -> dict:
-    """K9's two forms at one configuration against the plain version on
-    seeded data: bit-equal at highest; at default within the TF32 limits,
-    which must reject the f32 product and truncated TF32 inputs (checked
-    in every run). Returns the max |difference| of each form."""
+def pair_parity(mb, cfg, n_steps, seed) -> float:
+    """K9 at one configuration against the plain version on seeded data:
+    bit-equal at highest; at default within the TF32 limits, which must
+    reject the f32 product and truncated TF32 inputs (checked in every
+    run). Returns the max |difference|."""
     tc, br, k, precision, epilogue = cfg
     feats, coef, o_init = pair_inputs(tc, br, k, epilogue, seed)
     kw = dict(tc=tc, n_steps=n_steps, precision=precision, epilogue=epilogue)
@@ -1461,36 +1427,30 @@ def pair_parity(mb, cfg, n_steps, seed) -> dict:
                 **f32)}
         ctl = {name: mb.tf32_disagreement(c, ref, feats, coef, **how)[0]
                for name, c in controls.items()}
-    errs = {}
-    for version in mb.VERSIONS:
-        out = mb.pair_product(feats, coef, o_init, version=version, **kw)
-        mis, err = chain_mismatch(out, ref)
-        name = mb.pair_name(precision, epilogue, version)
-        what = f"parity {name} tc={tc} br={br} k={k}"
-        accepted = ""
-        if epilogue:
-            accepted = (f"; accepted lanes kernel {int((out < 3.0e38).sum())}"
-                        f", plain {int((ref < 3.0e38).sum())} of {br}")
-        errs[name] = err
-        if precision == "highest":
-            print(f"{what}: {mis} values differ (bit-equal required)"
-                  f"{accepted}")
-            if mis:
-                raise AssertionError(f"{what}: kernel and plain version "
-                                     f"disagree")
-            continue
-        reading, limit = mb.tf32_disagreement(out, ref, feats, coef, **how)
-        measure = (f"share of columns outside rtol {mb.TF32_T_RTOL}"
-                   if epilogue else "max |diff| / (2 max sum |products|)")
-        print(f"{what}: {measure} {reading:.3e} (limit {limit:g}); controls "
-              + ", ".join(f"{n} {v:.3e}" for n, v in ctl.items()) + accepted)
-        if reading > limit:
+    out = mb.pair_product(feats, coef, o_init, **kw)
+    mis, err = chain_mismatch(out, ref)
+    what = f"parity {mb.pair_name(precision, epilogue)} tc={tc} br={br} k={k}"
+    accepted = ""
+    if epilogue:
+        accepted = (f"; accepted lanes kernel {int((out < 3.0e38).sum())}"
+                    f", plain {int((ref < 3.0e38).sum())} of {br}")
+    if precision == "highest":
+        print(f"{what}: {mis} values differ (bit-equal required){accepted}")
+        if mis:
             raise AssertionError(f"{what}: kernel and plain version disagree")
-        for cname, v in ctl.items():
-            if v <= limit:
-                raise AssertionError(f"{what}: the TF32 limit does not "
-                                     f"reject the {cname}")
-    return errs
+        return err
+    reading, limit = mb.tf32_disagreement(out, ref, feats, coef, **how)
+    measure = (f"share of columns outside rtol {mb.TF32_T_RTOL}"
+               if epilogue else "max |diff| / (2 max sum |products|)")
+    print(f"{what}: {measure} {reading:.3e} (limit {limit:g}); controls "
+          + ", ".join(f"{n} {v:.3e}" for n, v in ctl.items()) + accepted)
+    if reading > limit:
+        raise AssertionError(f"{what}: kernel and plain version disagree")
+    for cname, v in ctl.items():
+        if v <= limit:
+            raise AssertionError(f"{what}: the TF32 limit does not "
+                                 f"reject the {cname}")
+    return err
 
 
 def bmm_ms(coef, feats, n_steps, tf32: bool) -> float:
@@ -1506,27 +1466,13 @@ def bmm_ms(coef, feats, n_steps, tf32: bool) -> float:
     return ms * n_steps / coef.shape[0]
 
 
-def pair_ab(mb, feats, coef, o_init, **kw) -> dict:
-    """K9's first form against its second at one configuration, in turns
-    (v1, new, new, v1), by mean_ms: one run, one card."""
-    fns = {v: mb.pair_product_fn(feats, coef, o_init, version=v, **kw)
-           for v in mb.VERSIONS}
-    order = (1, 2, 2, 1)
-    times = [mean_ms(fns[v], reps=10) for v in order]
-    ab = {"v1_ms": [times[0], times[3]], "new_ms": [times[1], times[2]]}
-    print(f"A/B {mb.pair_name(kw['precision'], kw['epilogue'])} (v1, new, "
-          f"new, v1): " + ", ".join(f"{t:.5f}" for t in times) + " ms")
-    return ab
-
-
-def kernel_probe_phase(ci, mb, card_line, sass: dict) -> tuple[list, dict]:
+def kernel_probe_phase(ci, mb, card_line) -> tuple[list, dict]:
     """tools/microbench_kernel_torch.py's measurement (K8's two forms at 1,
-    16384 and 4096 steps; the launch probe; K9's two forms at every
-    configuration) with the launch counts at 0 before it; then K8 against
-    a copy, the packing and recurrence passes and both K9 forms at every
-    configuration against their plain versions, A/B lines at the JAX
-    tool's first configuration (tc 256, br 1024, k 13), each kernel's
-    numbers there, and the SASS of both K9 forms."""
+    16384 and 4096 steps; the launch probe; K9 at every configuration)
+    with the launch counts at 0 before it; then K8 against a copy, the
+    packing and recurrence passes and K9 at every configuration against
+    their plain versions, and each kernel's numbers at the JAX tool's
+    first configuration (tc 256, br 1024, k 13)."""
     ktool = tool("microbench_kernel_torch")
     counts: dict = {}
     with counted(ci, counts):
@@ -1566,8 +1512,9 @@ def kernel_probe_phase(ci, mb, card_line, sass: dict) -> tuple[list, dict]:
 
     errs: dict = {}
     for i, cfg in enumerate(ktool.CONFIGS):
-        for name, err in pair_parity(mb, cfg, ktool.N_STEPS, seed=i).items():
-            errs[name] = max(errs.get(name, 0.0), err)
+        name = mb.pair_name(cfg[3], cfg[4])
+        errs[name] = max(errs.get(name, 0.0),
+                         pair_parity(mb, cfg, ktool.N_STEPS, seed=i))
 
     tc, br, k = 256, 1024, 13   # the JAX tool's first configuration
     n_steps = ktool.N_STEPS
@@ -1598,56 +1545,32 @@ def kernel_probe_phase(ci, mb, card_line, sass: dict) -> tuple[list, dict]:
         2 * n_steps * br / F32_OPS_RATE * 1e3,
         4 * (n_steps * br + 2 * br) / HBM_RATE * 1e3, None))
 
-    ab: dict = {}
     for precision in mb.PRECISIONS:
         for epilogue in (False, True):
             feats, coef, o_init = ktool.tool_inputs(
                 tc=tc, br=br, k=k, epilogue=epilogue, device="cuda")
             kw = dict(tc=tc, n_steps=n_steps, precision=precision,
                       epilogue=epilogue)
-            ab[mb.pair_name(precision, epilogue)] = pair_ab(
-                mb, feats, coef, o_init, **kw)
             plain_ms = mean_ms(lambda: mb.pair_product_plain(
                 feats, coef, o_init, **kw), reps=1)
             lib_ms = bmm_ms(coef, feats, n_steps, precision == "default")
-            for key in ("pair", "pair_v1"):
-                r = next(r for r in raw[key] if (
-                    r["tc"], r["br"], r["k"], r["precision"], r["epilogue"])
-                    == (tc, br, k, precision, epilogue))
-                name = mb.pair_name(precision, epilogue, r["version"])
-                rows.append(probe_row(
-                    name, PROBE_SOURCE, counts[name], errs[name], r["ms"],
-                    plain_ms, r["ops_ms"], r["bytes_ms"], lib_ms))
-                print(f"{name}: {r['ms']:.5f} ms; bound {r['bound_ms']:.5f} "
-                      f"ms (product {r['product_ms']:.5f}, epilogue "
-                      f"{r['epilogue_ms']:.5f}, f32 without FMA "
-                      f"{r['nofma_ms']}); plain {plain_ms:.3f} ms; torch.bmm "
-                      f"{lib_ms:.3f} ms")
+            r = next(r for r in raw["pair"] if (
+                r["tc"], r["br"], r["k"], r["precision"], r["epilogue"])
+                == (tc, br, k, precision, epilogue))
+            name = mb.pair_name(precision, epilogue)
+            rows.append(probe_row(
+                name, PROBE_SOURCE, counts[name], errs[name], r["ms"],
+                plain_ms, r["ops_ms"], r["bytes_ms"], lib_ms))
+            print(f"{name}: {r['ms']:.5f} ms; bound {r['bound_ms']:.5f} "
+                  f"ms (product {r['product_ms']:.5f}, epilogue "
+                  f"{r['epilogue_ms']:.5f}, f32 without FMA "
+                  f"{r['nofma_ms']}); plain {plain_ms:.3f} ms; torch.bmm "
+                  f"{lib_ms:.3f} ms")
     print("library_ms: torch.bmm over the 64 tables for K9; x.clone() for K8 "
           "(its function; the probe itself measures launch and per-CTA or "
           "per-step cost); none for K7 (no PyTorch call computes an FMA "
           "chain), the packing pass or the recurrence")
-
-    k9_sass = {}
-    for fn, c in sass.items():
-        if fn and fn.startswith(("pair_simt", "pair_tf32", "pair_wgmma")):
-            k9_sass[fn] = c
-    for pair in (("pair_simt_kernel<1>", "pair_simt_kernel<0>", 16),
-                 ("pair_wgmma_kernel<1,4,16>", "pair_wgmma_kernel<0,4,16>",
-                  16),
-                 ("pair_simt_v1_kernel<1>", "pair_simt_v1_kernel<0>", 8)):
-        epi, plain_fn, unrolled = pair
-        if epi in sass and plain_fn in sass:
-            extra = (sass[epi]["total"] - sass[plain_fn]["total"]) / unrolled
-            k9_sass[epi]["epilogue_sass_per_pair"] = extra
-            print(f"sass {epi}: {extra:.1f} instructions per (row, column) "
-                  f"pair beyond {plain_fn} (EPILOGUE_OPS {mb.EPILOGUE_OPS})")
-    for fn, c in sorted(k9_sass.items()):
-        if fn.startswith("pair_simt") and "loop_per_term" in c:
-            print(f"sass {fn}: k loop {c['loop_per_term']:.3f} instructions "
-                  f"and {c['loop_lds_per_term']:.3f} shared loads per "
-                  f"product term ({c['loop_terms']} terms a block)")
-    return rows, {"summary": summary, "ab": ab, "sass": k9_sass}
+    return rows, {"summary": summary}
 
 
 def ceiling_report(nums: dict, rates: dict, card_line: str) -> dict:
@@ -1679,11 +1602,9 @@ def adversarial_phase(ci, tb, bfc, bias) -> dict:
     ADVERSARIAL_RAYS rays over the tables tb (the seeds and mesh of
     tests/test_torch_anyhit_walk.py, which holds the same queries at
     1536 rays to the Pallas kernel): every single-mesh any-hit variant
-    on both walks against its plain version, 0 mismatches (ids, t bits,
-    counters)."""
+    against its plain version, 0 mismatches (ids, t bits, counters)."""
     from rendering_tpu_torch.ops import shadow_cases as sc
 
-    aw = tool("anyhit_walk_torch")
     out = {}
     for kind in sc.KINDS:
         ro, rd, tl = (torch.from_numpy(x).cuda() for x in sc.shadow_case(
@@ -1692,19 +1613,18 @@ def adversarial_phase(ci, tb, bfc, bias) -> dict:
         for name in ("any_hit", "any_hit_stats", "any_hit_rootfilter",
                      "any_hit_rootfilter_stats"):
             ref = plain(ci, tb, prep, bfc, **flags(ci, name))
-            for walk in ("packed", "tile"):
-                got = aw.run_walk(name, walk, tb, prep, bfc)
-                mis = sum(int((a.view(torch.int32) != b.view(torch.int32))
-                              .sum()) if a.dtype == torch.float32
-                          else int((a != b).sum()) for a, b in zip(got, ref))
-                out[f"{kind} {name} {walk}"] = mis
+            got = launch(ci, tb, prep, bfc, **flags(ci, name))
+            out[f"{kind} {name}"] = sum(
+                int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                if a.dtype == torch.float32 else int((a != b).sum())
+                for a, b in zip(got, ref))
         occluded = int((ref[1] >= 0).sum())
         print(f"adversarial {kind}: {ADVERSARIAL_RAYS} rays, "
               f"{int((tl < 0).sum())} entering resolved, {occluded} "
               f"occluded; mismatches (ids, t bits, counters) "
               f"{ {k: v for k, v in out.items() if k.startswith(kind)} }")
     if any(out.values()):
-        raise AssertionError("an any-hit walk disagrees with its plain "
+        raise AssertionError("the any-hit walk disagrees with its plain "
                              "version on an adversarial query")
     return out
 
@@ -3362,10 +3282,10 @@ def bvh_flagship_phase(ci, card_line, flag_loss: float) -> tuple[dict, dict]:
     """Phase 38: the flagship built with use_pallas_intersect=False (the
     250k mesh is above bruteforce_threshold, so every query walks the BVH
     through `bvh_closest`): the frame (each ray block's closest hits and
-    shadow rays, one launch each, no tile-walk kernel), timed; the middle
+    shadow rays, one launch each, no mesh kernel), timed; the middle
     block's two queries through the kernel against the plain walk (the
     first BVH_PLAIN_RAYS rays) and timed; the primary hits against the
-    tile walk's (phase 1's path) on every ray, differing ones ties; the
+    mesh kernels' (phase 1's path) on every ray, differing ones ties; the
     u8 frame against phase 1's; a train step, its repeat bit-equal, its
     loss and gradients against phase 5's. Returns (numbers, the kernel
     row's numbers)."""
@@ -3408,14 +3328,15 @@ def bvh_flagship_phase(ci, card_line, flag_loss: float) -> tuple[dict, dict]:
                 pipeline.render_scene(s)
         return run
 
-    # In turns with the tile walk's frame (phase 1's path) on the same
-    # tensors: tile, walk, walk, tile.
-    tile = with_settings(scene, use_pallas_intersect=True)
-    turns = [mean_ms(forward(x), reps=2) for x in (tile, scene, scene, tile)]
+    # In turns with the mesh kernels' frame (phase 1's path) on the same
+    # tensors: kernels, walk, walk, kernels.
+    kernels = with_settings(scene, use_pallas_intersect=True)
+    turns = [mean_ms(forward(x), reps=2)
+             for x in (kernels, scene, scene, kernels)]
     frame_ms = (turns[1] + turns[2]) / 2
     print(f"BVH-walk flagship frame {WIDTH}x{HEIGHT}: {frame_ms:.3f} ms "
-          f"(built in {build_s:.1f} s); A/B frame ms, tile walk, BVH walk, "
-          f"BVH walk, tile walk: {turns}; {u8_diff} u8 values differ from "
+          f"(built in {build_s:.1f} s); A/B frame ms, mesh kernels, BVH "
+          f"walk, BVH walk, mesh kernels: {turns}; {u8_diff} u8 values differ from "
           f"phase 1's frame; stats {stats} on {card_line}")
 
     queries = {}
@@ -3435,11 +3356,11 @@ def bvh_flagship_phase(ci, card_line, flag_loss: float) -> tuple[dict, dict]:
     ro, rd, _ = primary_rays(scene)
     ties = hit_differences(derived, with_settings(
         derived, use_pallas_intersect=True), ro, rd)
-    print(f"primary hits, BVH walk vs tile walk: {json.dumps(ties)}")
+    print(f"primary hits, BVH walk vs mesh kernels: {json.dumps(ties)}")
     if ties["differ"] != ties["ties"]:
         raise AssertionError("a primary hit of the BVH walk differs from "
-                             "the tile walk's other than by a tie")
-    del derived, ro, rd, frame3, tile
+                             "the mesh kernels' other than by a tie")
+    del derived, ro, rd, frame3, kernels
 
     grads: dict = {}
     step = train(ci, scene, BENCH_PATHS, reps=1,
@@ -3461,7 +3382,7 @@ def bvh_flagship_phase(ci, card_line, flag_loss: float) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     out = {"build_s": build_s, "frame_ms": frame_ms, "ab_frame_ms": turns,
            "stats": stats,
-           "u8_diff_phase1": u8_diff, "primary_vs_tile_walk": ties,
+           "u8_diff_phase1": u8_diff, "primary_vs_mesh_kernels": ties,
            "queries": queries, "fwd_bwd": step, "grad_worst": worst,
            "loss_rel_err": loss_err}
     c = queries["closest"]
@@ -3744,10 +3665,9 @@ def glass_train_phase(ci, card_line) -> dict:
         if not bool(torch.isfinite(t).all()) or float(t.abs().sum()) == 0:
             raise AssertionError("a glass gradient is zero or not finite")
     # The closest walk on every bounce; no any hit (shadow rays skip the
-    # glass, the only mesh) and no tile-walk variant.
+    # glass, the only mesh).
     print(f"glass train step launches: {({k: n for k, n in counts.items() if n})}")
-    if (not counts.get("closest_hit") or counts.get("any_hit")
-            or any(n for k, n in counts.items() if "tile_walk" in k)):
+    if not counts.get("closest_hit") or counts.get("any_hit"):
         raise AssertionError(f"glass train step launches: {counts}")
     params = extract_params(scene, paths)
     state = init(params)
@@ -3967,13 +3887,6 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    probe_sass = sass_counts(built[1][0])
-    for fn, n in probe_sass.items():
-        print(f"  sass {fn}: {n}")
-    walk_sass = tool("closest_walk_torch").pair_loops(built[0][0])
-    for fn, n in sorted(walk_sass.items()):
-        print(f"  sass {fn}: {json.dumps(n)}")
-
     t0 = time.perf_counter()
     scene = build_flagship_scene(WIDTH, HEIGHT, n_tris=N_TRIS)
     torch.cuda.synchronize()
@@ -4254,37 +4167,18 @@ def main() -> int:
           f"{b_frame_ms:.3f} ms (CUDA events, mean of 2 after 1 warm-up) on "
           f"{card_line}")
     del b_frame
-    # The frame's any hits on each walk, by bounce and batch, and three
-    # of its shadow queries against the tile walk.
-    aw = tool("anyhit_walk_torch")
-    anyhit_frames = {}
-    for walk in ("tile", "packed"):
-        kept_b = dict(aw.bouncing_keep(n_blocks))
-        anyhit_frames[walk] = aw.frame_anyhit_ms(tiny, walk, kept_b)
-        print(f"bouncing frame, every any hit on the {walk} walk: "
-              f"{json.dumps(anyhit_frames[walk])} on {card_line}")
-    aw.heaviest_bounce2(kept_b, n_blocks)
+    # Three of the frame's shadow queries and two of its closest hits,
+    # each held to the plain version.
+    kept_b, kept_c = bouncing_queries(ci, tiny, n_blocks)
     b_queries = {}
-    for key in ("bounce0_point_distant", "bounce0_area",
-                "bounce2_point_distant"):
-        b_queries[key] = kernel_numbers(ci, "any_hit", *kept_b[key], bfc)
+    for key, q in kept_b.items():
+        b_queries[key] = kernel_numbers(ci, "any_hit", *q, bfc)
         print(f"any_hit, bouncing {key}: {json.dumps(b_queries[key])}")
-    del kept_b
-    # The frame's closest hits on each walk, by bounce, and bounce 0's
-    # middle and bounce 2's heaviest closest-hit queries.
-    cw = tool("closest_walk_torch")
-    closest_frames = {}
-    for walk in ("tile", cw.SHIPPED):
-        kept_c = dict(cw.bouncing_keep(n_blocks))
-        closest_frames[walk] = cw.frame_closest_ms(tiny, walk, kept_c)
-        print(f"bouncing frame, every closest hit on the {walk} walk: "
-              f"{json.dumps(closest_frames[walk])} on {card_line}")
-    cw.heaviest_bounce2(kept_c, n_blocks)
     b_closest = {}
-    for key in ("bounce0", "bounce2"):
-        b_closest[key] = kernel_numbers(ci, "closest_hit", *kept_c[key], bfc)
+    for key, q in kept_c.items():
+        b_closest[key] = kernel_numbers(ci, "closest_hit", *q, bfc)
         print(f"closest_hit, bouncing {key}: {json.dumps(b_closest[key])}")
-    del kept_c
+    del kept_b, kept_c
     lap("14 bouncing frame")
 
     # ---- 15. bouncing whole-render parity, single pass and K6 ---------------
@@ -4434,7 +4328,7 @@ def main() -> int:
     # ---- 20-21. the hardware-ceiling probes (K7-K9) through their tools ------
     probe_rows, vpu = fma_phase(ci, mb, card_line)
     lap("20 K7 f32 rates, HBM (microbench_vpu_torch)")
-    rows_k, kprobe = kernel_probe_phase(ci, mb, card_line, probe_sass)
+    rows_k, kprobe = kernel_probe_phase(ci, mb, card_line)
     probe_rows += rows_k
     lap("21 K8 grid, K9 pair product (microbench_kernel_torch)")
     shares = ceiling_report(nums, vpu["rates"], card_line)
@@ -4498,7 +4392,7 @@ def main() -> int:
     md = multidevice_phase(ci, card_line)
     lap(f"34-37 multi-device ({md['label']})")
 
-    # ---- 38-39. the oracles without the tile-walk kernels -----------------
+    # ---- 38-39. the oracles without the mesh kernels ----------------------
     bvh, bvh_row = bvh_flagship_phase(ci, card_line, flag["loss"])
     lap("38 BVH-walk flagship")
     dense = dense_multimesh_phase(ci, card_line)
@@ -4527,13 +4421,6 @@ def main() -> int:
             "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
             "library_ms": None,
         }
-        # The tile walk's variant that the kernel replaced, timed in turns
-        # with it on the same query; no path launches it.
-        old = ci.variant_name(
-            anyhit=ci.KERNELS[name].anyhit,
-            fused=ci.KERNELS[name].fused and not ci.KERNELS[name].anyhit,
-            root_filter=ci.KERNELS[name].root_filter,
-            collect_stats=ci.KERNELS[name].collect_stats, tile_walk=True)
         if name in ("closest_hit", "any_hit"):
             # The inverse-rendering extras' paths launch K1 and K2 too.
             row["launches_by_path"] = {
@@ -4559,9 +4446,6 @@ def main() -> int:
             per_rank = [r[key][sub].get(name, 0) for r in md["per_rank"]]
             if any(per_rank):
                 row.setdefault("launches_by_path", {})[path] = per_rank
-        row["tile_walk_ms"] = n["tile_walk_ms"]
-        row["tile_walk"] = {"name": old, "ms": n["tile_walk_ms"],
-                            "launches": launches.get(old, 0)}
         rows.append(row)
     rows += probe_rows
     rows.append({"name": "ac_walk", "route": "cuda", "source": AC_SOURCE,
@@ -4591,8 +4475,7 @@ def main() -> int:
         "bouncing": {"frame_ms": b_frame_ms, "stats": b_stats,
                      "peak_bytes": b_peak, "bounces": bounces,
                      "fwd_bwd": b_train, "k6": k6, "k2_same_query": k2_same,
-                     "anyhit_frames": anyhit_frames, "anyhit_queries": b_queries,
-                     "closest_frames": closest_frames,
+                     "anyhit_queries": b_queries,
                      "closest_queries": b_closest,
                      "adversarial": adversarial, "transparent": transparent,
                      "flagship_steps_by_frac": frac_steps,
@@ -4603,9 +4486,7 @@ def main() -> int:
         "trace": traced, "multidevice": md,
         "bvh_flagship": bvh, "dense_multimesh": dense,
         "index_accumulate": accum, "glass_train": glass, "prepass": prepass,
-        "intersect_sass": walk_sass,
         "probes": {"vpu": vpu["rates"], "kernel": kprobe["summary"],
-                   "k9_ab": kprobe["ab"], "k9_sass": kprobe["sass"],
                    "k1_k6_shares": shares},
         "phase_s": lap.laps,
     }))

@@ -1,5 +1,6 @@
 // Ray-mesh intersection for Hopper (sm_90a): closest hit and any hit,
-// with the root filter and the test counters as compile-time variants.
+// with the root filter and the test counters as compile-time variants,
+// and the pre-pass that builds their visit tables.
 //
 // Replaces the Pallas TPU kernel rendering_tpu/ops/pallas_intersect.py
 // ::_kernel (its _cull_and_intersect and _intersect_chunk bodies), in
@@ -30,29 +31,24 @@
 //     semantics. box_tests grows by n_sub * 512 for every live (tile,
 //     super) step; tri_tests by tc times the number of rays whose
 //     per-ray sub-chunk cull is live, for every sub-chunk, with the
-//     running t at that moment. __syncthreads_count gives that number
-//     where the plain walk uses __syncthreads_or; thread 0 sums in 64
-//     bits and each CTA adds once atomically, so the totals are exact
-//     and the same on every run.
-// Variants not asked for compile out, so the plain walk keeps its code.
+//     running t at that moment. The reductions that find a tile's live
+//     sub-chunks count those rays too; one thread sums in 64 bits and
+//     each CTA adds once atomically, so the totals are exact and the
+//     same on every run.
+// Variants not asked for compile out, so a walk without them keeps its
+// code.
 //
-// Three walks. The closest walk (closest_walk_kernel) runs every closest
-// hit: K1, K3/K4's closest variants and K5's fused closest hit. The
-// any-hit walk (anyhit_walk_kernel) runs every any hit: K2, K3/K4's
-// any-hit variants, K5's fused any hit and K6's phases. The tile walk
-// (mesh_intersect_kernel) is both as they were before (entry
-// rt_tile_walk), launched only to be timed against them.
-//
-// The tile walk. One CTA per 512-ray tile, one ray per thread, launched
-// in tile order. The CTA walks its tile's live super-chunk list
-// (torder/counts, from the pre-pass in ops/cuda_intersect.py) in order,
-// which is the TPU grid's per-tile visit order. For each super it stages
-// the super's n_sub cull boxes in shared memory; each thread slab-tests
-// its ray against each cull box with its running t, and a sub-chunk no
-// ray of the tile needs is skipped. A live sub-chunk is staged in shared
-// memory 64 triangles at a time (rows v0/e1/e2, and the reach rows for
-// the root filter) and every thread runs Moller-Trumbore against each
-// triangle in ascending row order.
+// Two walks, one a query kind, both over the visit tables of the
+// pre-pass below. The closest walk (closest_walk_kernel) runs every
+// closest hit: K1, K3/K4's closest variants and K5's fused closest hit.
+// The any-hit walk (anyhit_walk_kernel) runs every any hit: K2, K3/K4's
+// any-hit variants, K5's fused any hit and K6's phases. Each walks a
+// 512-ray tile's live super-chunk list (torder/counts) in order, which is
+// the TPU grid's per-tile visit order. For each super it tests every
+// unresolved ray against the super's n_sub cull boxes, skips a sub-chunk
+// no ray of the tile needs, and stages a live sub-chunk in shared memory
+// 64 triangles at a time (rows v0/e1/e2, and the reach rows for the root
+// filter), against which each ray runs Moller-Trumbore.
 //
 // Results equal the TPU kernel's. The accept test is the strict
 // t < t_best applied row by row, which picks the same winner as the
@@ -62,8 +58,11 @@
 // of _intersect_chunk and the library is built with -fmad=false and
 // IEEE division, so no product is contracted into an FMA. Min/max keep
 // NaN (jnp.minimum/maximum semantics): a NaN slab keeps a chunk live.
+// Tiles are independent, so no schedule changes a bit: ids, t and the
+// counters equal the plain version's (ops/cuda_intersect.py
+// intersect_plain).
 //
-// What bounds it on an H100: operations. Each ray-triangle pair costs
+// What bounds them on an H100: operations. Each ray-triangle pair costs
 // 57 f32 instructions (pair_test): cross products p and q, 2 x (6 mul +
 // 3 sub); det, 3 mul + 2 add; tv, 3 sub; u, v and t, 3 x (4 mul + 2
 // add); u + v, 1 add; 7 compares; 1 select; and the IEEE reciprocal
@@ -74,22 +73,18 @@
 // SMs x 128 lanes x 1.98 GHz = 33.5e12/s, half its FMA-counted 67
 // TFLOP/s. The tables are 16 MB at 250k triangles and the rays a few MB.
 //
-// What bounded the tile walk's any hit (H100 80GB HBM3, 700 W, PERF.md):
-// on the bouncing scene's point+distant shadow query (262,144 rays, 250k
-// triangles) the pairs its per-ray cull needs are 19.9M, the pairs the
-// tile's unresolved rays evaluate (union_pairs, the TPU formulation)
-// 77.8M, the lane-slots it issued (warp_pairs) 97.9M. It took 1.80 ms,
-// and so did its longest tile (2.00 ms of a 2.00 ms span; the mean tile
-// 96 us): one tile, sharing its SM with a second CTA, set the time.
+// What the walks do about it. A launch of one CTA a tile, in tile order,
+// took as long as its heaviest tile on every query measured: one tile on
+// one CTA, sharing its SM, set the time (PERF.md section 6, K1-K6).
 //
-// The any-hit walk evaluates the same set of pairs and changes only how
-// it lands on lanes, SMs and time:
+// The any-hit walk evaluates the pairs of that formulation and changes
+// how they land on lanes, SMs and time:
 //  (i) Packing. At a tile's start and at each super boundary where a ray
 //      resolved since, the unresolved rays (t >= 0, or NaN) move through
 //      shared memory, 11 words each, into the lowest threads; the others
 //      write their result and drop. A warp without an unresolved ray
-//      skips the Moller-Trumbore loop. Issued lane-slots fall from
-//      warp_pairs to packed_pairs (82.1M on that query).
+//      skips the Moller-Trumbore loop, so the lane-slots issued are
+//      packed_pairs, not warp_pairs (intersect_plain's stats).
 //  (ii) A persistent grid, one CTA per SM (ops/cuda_intersect.py
 //      WALK_CTAS_PER_SM), taking tiles from a global counter in the
 //      schedule `order`, heaviest first (most live supers). The
@@ -105,21 +100,11 @@
 //      The rows of the next live sub-chunk (or next piece) are copied
 //      with cp.async into a second buffer while the current one
 //      computes, and the next super's boxes while its predecessor runs.
-// Barriers per live sub-chunk fall from 3 to 2 (tc = 64), per dead
-// sub-chunk from 1 to 0, per further piece of a sub-chunk from 2 to 1;
-// per super both walks take 2, and the any-hit walk 2 per tile more.
-// The counters keep their semantics (box_tests n_live x n_sub x 512 per
+// It takes 2 barriers per live sub-chunk (tc = 64), none per dead one, 1
+// per further piece of a sub-chunk, 2 per super and 2 per tile. The
+// counters keep their semantics (box_tests n_live x n_sub x 512 per
 // tile, tri_tests tc x the live rays at each sub-chunk's start), summed
-// per CTA in 64 bits and added atomically. Tiles are independent, so
-// the schedule changes no bit; ids and t equal the tile walk's and the
-// plain version's.
-//
-// What bounded the tile walk's closest hit (H100 80GB HBM3, 700 W,
-// PERF.md): as for the any hit, the launch's span was its longest tile on
-// every query measured (flagship 382 us, the 16-mesh scene 407 us, the
-// bouncing frame's bounce 2 9178 us against a 577 us mean tile). A tile
-// ran on one CTA, two to an SM, so no schedule of whole tiles could go
-// below the heaviest one.
+// per CTA in 64 bits and added atomically.
 //
 // The closest walk splits the tile and keeps the evaluated set:
 //  (i) Heavy tiles split over a thread block cluster of G CTAs of 512
@@ -136,13 +121,13 @@
 //      at least SPLIT_FACTOR times the query's mean is split (the
 //      pre-pass's `n_split`, heaviest first); the rest run whole, one
 //      CTA a tile, one ray a thread, G of them to a cluster, heaviest
-//      tile first (`order`). The ranks of a split
-//      tile agree on its tile-live sub-chunks through distributed shared
-//      memory: each sums its rays' live masks (and, counting, its live
-//      rays per sub-chunk) into a slot of its own, and after a cluster
-//      barrier every thread ORs the G slots (a whole tile does the same
-//      within its CTA). A ray's running t only falls, so a sub-chunk dead
-//      at the super's start stays dead: the exchange runs once at the
+//      tile first (`order`). The ranks of a split tile agree on its
+//      tile-live sub-chunks through distributed shared memory: each sums
+//      its rays' live masks (and, counting, its live rays per sub-chunk)
+//      into a slot of its own, and after a cluster barrier every thread
+//      ORs the G slots (a whole tile does the same within its CTA). A
+//      ray's running t only falls, so a sub-chunk dead at the super's
+//      start stays dead: the exchange runs once at the
 //      super's start and again only after an evaluated sub-chunk that
 //      leaves candidates, and a sub-chunk runs iff some ray of the tile
 //      needs it at that moment, as in the TPU formulation. The per-pair
@@ -162,8 +147,7 @@
 // bouncing frame's bounces 0 and 2) warp_pairs equalled union_pairs.
 // box_tests (n_live x n_sub x 512) and tri_tests (tc x the tile's live
 // rays at each evaluated sub-chunk's start) are summed by the tile's first
-// thread; ids, t and the counters equal the tile walk's and the plain
-// version's.
+// thread.
 //
 // The pre-pass (prepass_kernel, entry rt_prepass) builds every walk's
 // visit tables: per 512-ray tile, the supers some unresolved ray's exact
@@ -183,11 +167,6 @@
 // memory. The sort key (the super's squared distance from the tile's
 // live-ray centroid) comes in from PyTorch, whose reductions set its
 // bits. torder and counts equal tile_tables' bit for bit.
-//
-// TIMING variants (not launched by any render path) record each tile's
-// [%globaltimer start, end, %smid]: tools/anyhit_walk_torch.py and
-// tools/closest_walk_torch.py turn them into the longest and mean tile
-// and the tail.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -301,18 +280,6 @@ __device__ __forceinline__ bool pair_test(const float (*s)[kPiece], int q,
   return ok;
 }
 
-// Device clock and SM id, for the TIMING variants' per-tile records.
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-__device__ __forceinline__ unsigned sm_id() {
-  unsigned s;
-  asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
-  return s;
-}
-
 // Asynchronous global -> shared copies (cp.async, Ampere and later):
 // each thread's copies complete at its own wait, so a buffer is read
 // only after every thread has waited and a barrier has passed.
@@ -374,7 +341,6 @@ struct Args {
   const int* order;      // (n_tiles,) tile schedule, heaviest first
   const int* n_split;    // (1,) the closest walk's heavy tiles: order's first
   int* work;             // (1,) next schedule slot, zeroed, the any-hit walk
-  long long* timing;     // (n_tiles, 3) [start ns, end ns, SM], TIMING only
   float* t_out;          // (rp,)
   int* tri_out;          // (rp,) tri, or mid if FUSED
   int* vid_out;          // (rp,), FUSED only
@@ -383,99 +349,9 @@ struct Args {
   int cluster;           // CTAs per tile, the closest walk only
 };
 
-// ---- the tile walk: closest hit, and the any hit as it was -------------
-
-template <bool ANYHIT, bool FUSED, bool ROOT_FILTER, bool STATS, bool TIMING>
-__global__ void __launch_bounds__(kRayTile) mesh_intersect_kernel(const Args a) {
-  constexpr int kRows = ROOT_FILTER ? 15 : 9;  // v0 e1 e2 [reach_lo reach_hi]
-  __shared__ float s_box[kMaxSub][8];
-  __shared__ float s_tri[kRows][kPiece];
-
-  const int tile = blockIdx.x;
-  const int lane = threadIdx.x;
-  unsigned long long t_start = 0;
-  if (TIMING && lane == 0) t_start = global_ns();
-  const int rp = a.rp, n_sub = a.n_sub, tc = a.tc;
-  const long r = (long)tile * kRayTile + lane;
-  const float* aux = a.aux;
-  const float o[3] = {aux[0L * rp + r], aux[1L * rp + r], aux[2L * rp + r]};
-  const float d[3] = {aux[3L * rp + r], aux[4L * rp + r], aux[5L * rp + r]};
-  const float iv[3] = {aux[6L * rp + r], aux[7L * rp + r], aux[8L * rp + r]};
-  float t_best = aux[9L * rp + r];
-  int tri_best = -1;
-  long long tri_tests = 0;  // STATS: the same in every thread
-
-  const long row_stride = (long)n_sub * tc;
-  const int n_live = a.counts[tile];
-  for (int k = 0; k < n_live; ++k) {
-    const int sup = a.torder[(long)tile * a.cs + k];
-    __syncthreads();  // every thread is done with the previous super's boxes
-    if (lane < n_sub * 6) {
-      s_box[lane / 6][lane % 6] = a.cbox[((long)sup * n_sub + lane / 6) * 8 + lane % 6];
-    }
-    __syncthreads();
-    for (int j = 0; j < n_sub; ++j) {
-      const bool live = cull_live(s_box[j], o, iv, t_best);
-      if (STATS) {
-        const int n = __syncthreads_count(live);
-        if (n == 0) continue;
-        tri_tests += (long long)n * tc;
-      } else if (!__syncthreads_or(live)) {
-        continue;
-      }
-
-      const float* base = a.tri + (long)sup * 16 * row_stride + (long)j * tc;
-      for (int p0 = 0; p0 < tc; p0 += kPiece) {
-        for (int e = lane; e < kRows * kPiece; e += kRayTile) {
-          s_tri[e / kPiece][e % kPiece] = base[(e / kPiece) * row_stride + p0 + e % kPiece];
-        }
-        __syncthreads();
-        // A resolved ray (t_best < 0) can accept nothing: t >= 0 > t_best.
-        if (t_best >= 0.0f) {
-          for (int q = 0; q < kPiece; ++q) {
-            float t;
-            if (pair_test<kRows, ROOT_FILTER>(s_tri, q, o, d, iv, t_best,
-                                              a.backface, t)) {
-              if (ANYHIT) {
-                t_best = -1.0f;  // done marker: culls every later chunk
-                tri_best = 0;
-                break;
-              }
-              t_best = t;
-              tri_best = (sup * n_sub + j) * tc + p0 + q;
-            }
-          }
-        }
-        __syncthreads();  // s_tri is rewritten by the next piece
-      }
-    }
-  }
-  if (FUSED) {
-    const bool found = tri_best >= 0;
-    a.t_out[r] = found ? t_best : kFmax;
-    a.tri_out[r] = found ? a.idmap[tri_best] : -1;
-    a.vid_out[r] = found ? a.idmap[(long)a.n_pad + tri_best] : 0;
-  } else {
-    a.t_out[r] = t_best;
-    a.tri_out[r] = tri_best;
-  }
-  if (STATS && lane == 0) {
-    atomicAdd(&a.counters[0], (unsigned long long)tri_tests);
-    atomicAdd(&a.counters[1], (unsigned long long)n_live * n_sub * kRayTile);
-  }
-  if (TIMING) {
-    __syncthreads();
-    if (lane == 0) {
-      a.timing[3L * tile] = (long long)t_start;
-      a.timing[3L * tile + 1] = (long long)global_ns();
-      a.timing[3L * tile + 2] = (long long)sm_id();
-    }
-  }
-}
-
 // ---- the any-hit walk --------------------------------------------------
 
-template <bool ROOT_FILTER, bool STATS, bool TIMING>
+template <bool ROOT_FILTER, bool STATS>
 __global__ void __launch_bounds__(kRayTile) anyhit_walk_kernel(const Args a) {
   constexpr int kRows = ROOT_FILTER ? 15 : 9;
   __shared__ float s_ray[10][kRayTile];   // the packing exchange
@@ -517,8 +393,6 @@ __global__ void __launch_bounds__(kRayTile) anyhit_walk_kernel(const Args a) {
     const int slot = s_next[it & 1];
     if (slot >= a.n_tiles) break;
     const int tile = a.order[slot];
-    unsigned long long t_start = 0;
-    if (TIMING && tid == 0) t_start = global_ns();
     const long r0 = (long)tile * kRayTile;
     const int n_live = a.counts[tile];
     const int* torder = a.torder + (long)tile * a.cs;
@@ -686,14 +560,6 @@ __global__ void __launch_bounds__(kRayTile) anyhit_walk_kernel(const Args a) {
       a.tri_out[r0 + lane] = tri_best;
     }
     if (STATS && tid == 0) box_tests += (long long)n_live * n_sub * kRayTile;
-    if (TIMING) {
-      __syncthreads();
-      if (tid == 0) {
-        a.timing[3L * tile] = (long long)t_start;
-        a.timing[3L * tile + 1] = (long long)global_ns();
-        a.timing[3L * tile + 2] = (long long)sm_id();
-      }
-    }
   }
   cp_async_wait_all();
   if (STATS && tid == 0) {
@@ -714,7 +580,7 @@ __global__ void __launch_bounds__(kRayTile) anyhit_walk_kernel(const Args a) {
 // 1), G of them to a cluster. Every decision that shapes a tile's walk
 // (the super, the sub-chunk, the piece) is taken by all the threads that
 // share it, so they take the same steps and barriers.
-template <bool FUSED, bool ROOT_FILTER, bool STATS, bool TIMING>
+template <bool FUSED, bool ROOT_FILTER, bool STATS>
 __global__ void __launch_bounds__(kRayTile, 2) closest_walk_kernel(const Args a) {
   constexpr int kRows = ROOT_FILTER ? 15 : 9;
   __shared__ __align__(16) float s_tri[2][kRows][kPiece];
@@ -723,7 +589,6 @@ __global__ void __launch_bounds__(kRayTile, 2) closest_walk_kernel(const Args a)
   // rays' live masks, and with STATS its live rays per sub-chunk.
   __shared__ unsigned s_xmask[3];
   __shared__ int s_xcount[STATS ? 3 : 1][kMaxSub];
-  __shared__ unsigned s_sm;  // TIMING: this CTA's SM
 
   // Cluster c < n_split takes heavy tile order[c] and splits it (g = G);
   // after them, each CTA of a cluster takes a tile of its own (g = 1),
@@ -773,8 +638,6 @@ __global__ void __launch_bounds__(kRayTile, 2) closest_walk_kernel(const Args a)
   int b = 0;   // the buffer of the next unit of rows
   const int sub = tid % g;  // this thread's share of the ray's triangles
   const bool lead = (g == 1 || rank == 0) && tid == 0;
-  unsigned long long t_start = 0;
-  if (TIMING && lead) t_start = global_ns();
   const long r = (long)tile * kRayTile +
                  (g > 1 ? (long)rank * (kRayTile / g) : 0L) + tid / g;
   float o[3], d[3], iv[3];
@@ -984,35 +847,10 @@ __global__ void __launch_bounds__(kRayTile, 2) closest_walk_kernel(const Args a)
     atomicAdd(&a.counters[0], (unsigned long long)tri_tests);
     atomicAdd(&a.counters[1], (unsigned long long)n_live * n_sub * kRayTile);
   }
-  // TIMING: the SMs the cluster's CTAs ran on; rank 0's id, and the
-  // number of distinct ones above bit 16.
-  int n_sms = 1;
-  if (TIMING && g > 1) {
-    if (tid == 0) s_sm = sm_id();
-    cluster_arrive();
-    cluster_wait();
-    if (lead) {
-      unsigned seen[8];
-      n_sms = 0;
-      for (int c = 0; c < g; ++c) {
-        const unsigned sm = peer_load(&s_sm, c);
-        bool dup = false;
-        for (int x = 0; x < n_sms; ++x) dup = dup || seen[x] == sm;
-        if (!dup) seen[n_sms++] = sm;
-      }
-    }
-  }
   // No CTA of a split tile leaves while a peer may still read its slots.
   if (g > 1) {
     cluster_arrive();
     cluster_wait();
-  } else if (TIMING) {
-    __syncthreads();
-  }
-  if (TIMING && lead) {
-    a.timing[3L * tile] = (long long)t_start;
-    a.timing[3L * tile + 1] = (long long)global_ns();
-    a.timing[3L * tile + 2] = (long long)sm_id() | ((long long)n_sms << 16);
   }
 }
 
@@ -1135,37 +973,18 @@ __global__ void __launch_bounds__(kRayTile) prepass_kernel(const PrepassArgs a) 
 
 // ---- launchers ------------------------------------------------------------
 
-// The tile walk's kernel for its flags (the fused any hit has none: an
-// any hit over fused tables is the single-mesh walk over their geometry).
 using WalkFn = void (*)(const Args);
-template <bool ANYHIT, bool FUSED>
-WalkFn tile_walk_variant(int root_filter, int stats, int timing) {
-  const WalkFn fns[8] = {
-      mesh_intersect_kernel<ANYHIT, FUSED, false, false, false>,
-      mesh_intersect_kernel<ANYHIT, FUSED, false, false, true>,
-      mesh_intersect_kernel<ANYHIT, FUSED, false, true, false>,
-      mesh_intersect_kernel<ANYHIT, FUSED, false, true, true>,
-      mesh_intersect_kernel<ANYHIT, FUSED, true, false, false>,
-      mesh_intersect_kernel<ANYHIT, FUSED, true, false, true>,
-      mesh_intersect_kernel<ANYHIT, FUSED, true, true, false>,
-      mesh_intersect_kernel<ANYHIT, FUSED, true, true, true>};
-  return fns[(root_filter ? 4 : 0) + (stats ? 2 : 0) + (timing ? 1 : 0)];
-}
-WalkFn tile_walk_kernel(int anyhit, int fused, int root_filter, int stats,
-                        int timing) {
-  if (anyhit) return tile_walk_variant<true, false>(root_filter, stats, timing);
-  return fused ? tile_walk_variant<false, true>(root_filter, stats, timing)
-               : tile_walk_variant<false, false>(root_filter, stats, timing);
-}
 
-// The any-hit walk's kernel for its flags.
-WalkFn walk_kernel(int root_filter, int stats, int timing) {
-  const WalkFn fns[8] = {
-      anyhit_walk_kernel<false, false, false>, anyhit_walk_kernel<false, false, true>,
-      anyhit_walk_kernel<false, true, false>, anyhit_walk_kernel<false, true, true>,
-      anyhit_walk_kernel<true, false, false>, anyhit_walk_kernel<true, false, true>,
-      anyhit_walk_kernel<true, true, false>, anyhit_walk_kernel<true, true, true>};
-  return fns[(root_filter ? 4 : 0) + (stats ? 2 : 0) + (timing ? 1 : 0)];
+// The any-hit walk's kernel for its flags (the fused any hit has none: an
+// any hit over fused tables is the single-mesh walk over their geometry).
+int anyhit_variant(int root_filter, int stats) {
+  return (root_filter ? 2 : 0) + (stats ? 1 : 0);
+}
+WalkFn walk_kernel(int root_filter, int stats) {
+  const WalkFn fns[4] = {
+      anyhit_walk_kernel<false, false>, anyhit_walk_kernel<false, true>,
+      anyhit_walk_kernel<true, false>, anyhit_walk_kernel<true, true>};
+  return fns[anyhit_variant(root_filter, stats)];
 }
 
 // The persistent grid: `per_sm` CTAs on every SM (0: as many as are
@@ -1173,7 +992,7 @@ WalkFn walk_kernel(int root_filter, int stats, int timing) {
 // most one a tile.
 int walk_grid(WalkFn fn, int variant, int per_sm, int n_tiles) {
   constexpr int kMaxDevices = 64;
-  static int resident[kMaxDevices][8], sms[kMaxDevices];
+  static int resident[kMaxDevices][4], sms[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
@@ -1195,27 +1014,20 @@ int walk_grid(WalkFn fn, int variant, int per_sm, int n_tiles) {
 }
 
 // The closest walk's kernel for its flags.
-WalkFn closest_kernel(int fused, int root_filter, int stats, int timing) {
-  const int v = (fused ? 8 : 0) + (root_filter ? 4 : 0) + (stats ? 2 : 0) +
-                (timing ? 1 : 0);
-  const WalkFn fns[16] = {
-      closest_walk_kernel<false, false, false, false>,
-      closest_walk_kernel<false, false, false, true>,
-      closest_walk_kernel<false, false, true, false>,
-      closest_walk_kernel<false, false, true, true>,
-      closest_walk_kernel<false, true, false, false>,
-      closest_walk_kernel<false, true, false, true>,
-      closest_walk_kernel<false, true, true, false>,
-      closest_walk_kernel<false, true, true, true>,
-      closest_walk_kernel<true, false, false, false>,
-      closest_walk_kernel<true, false, false, true>,
-      closest_walk_kernel<true, false, true, false>,
-      closest_walk_kernel<true, false, true, true>,
-      closest_walk_kernel<true, true, false, false>,
-      closest_walk_kernel<true, true, false, true>,
-      closest_walk_kernel<true, true, true, false>,
-      closest_walk_kernel<true, true, true, true>};
-  return fns[v];
+int closest_variant(int fused, int root_filter, int stats) {
+  return (fused ? 4 : 0) + (root_filter ? 2 : 0) + (stats ? 1 : 0);
+}
+WalkFn closest_kernel(int fused, int root_filter, int stats) {
+  const WalkFn fns[8] = {
+      closest_walk_kernel<false, false, false>,
+      closest_walk_kernel<false, false, true>,
+      closest_walk_kernel<false, true, false>,
+      closest_walk_kernel<false, true, true>,
+      closest_walk_kernel<true, false, false>,
+      closest_walk_kernel<true, false, true>,
+      closest_walk_kernel<true, true, false>,
+      closest_walk_kernel<true, true, true>};
+  return fns[closest_variant(fused, root_filter, stats)];
 }
 
 // The launch configuration of the closest walk: n clusters of g CTAs of
@@ -1265,17 +1077,16 @@ int resident_clusters(WalkFn fn, int g) {
 // CTAs must fit one GPC at once) or a refused launch returns the CUDA
 // error; nothing falls back.
 int launch_closest(const Args& a, int fused, int root_filter, int stats,
-                   int timing, cudaStream_t s) {
+                   cudaStream_t s) {
   const int g = a.cluster;
-  const WalkFn fn = closest_kernel(fused, root_filter, stats, timing);
+  const WalkFn fn = closest_kernel(fused, root_filter, stats);
   constexpr int kMaxDevices = 64;
-  static bool fits[kMaxDevices][16][9];
+  static bool fits[kMaxDevices][8][9];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  const int v = (fused ? 8 : 0) + (root_filter ? 4 : 0) + (stats ? 2 : 0) +
-                (timing ? 1 : 0);
+  const int v = closest_variant(fused, root_filter, stats);
   if (!fits[dev][v][g]) {
     const int n = resident_clusters(fn, g);
     if (n < 0) return -n;
@@ -1316,17 +1127,13 @@ extern "C" {
 // cluster each and runs the others whole.
 // root_filter=1 adds the reach-box slab (table rows 9-14); stats=1 adds
 // [tri_tests, box_tests] into counters (2,) u64, which the caller zeroes.
-// timing, when not null, takes (n_tiles, 3) int64 per-tile records [start
-// ns, end ns, SM id] (the TIMING variant; the closest walk adds the number
-// of distinct SMs its cluster ran on above bit 16). ctas_per_sm sets the
-// any-hit walk's persistent grid (that many CTAs on every SM, 0 for as
-// many as fit). cluster is the closest walk's CTAs per cluster (1, 2, 4
-// or 8), which takes n_sub <= 8; its tri and cbox must be 16-byte
-// aligned.
+// ctas_per_sm sets the any-hit walk's persistent grid (that many CTAs on
+// every SM, 0 for as many as fit). cluster is the closest walk's CTAs per
+// cluster (1, 2, 4 or 8), which takes n_sub <= 8; its tri and cbox must
+// be 16-byte aligned.
 int rt_intersect(const void* tri, const void* cbox, const void* aux,
                  const void* torder, const void* counts, const void* idmap,
                  const void* order, const void* n_split, void* work,
-                 void* timing,
                  void* t_out, void* tri_out, void* vid_out, void* counters,
                  int n_tiles, int rp, int cs, int n_sub, int tc, int n_pad,
                  int backface, int anyhit, int fused, int root_filter,
@@ -1347,65 +1154,34 @@ int rt_intersect(const void* tri, const void* cbox, const void* aux,
   Args a{(const float*)tri, (const float*)cbox, (const float*)aux,
          (const int*)torder, (const int*)counts, (const int*)idmap,
          (const int*)order, (const int*)n_split, (int*)work,
-         (long long*)timing, (float*)t_out, (int*)tri_out, (int*)vid_out,
+         (float*)t_out, (int*)tri_out, (int*)vid_out,
          (unsigned long long*)counters,
          n_tiles, rp, cs, n_sub, tc, n_pad, backface};
   const cudaStream_t s = (cudaStream_t)stream;
   if (anyhit) {
-    const int variant = (root_filter ? 4 : 0) + (stats ? 2 : 0) + (timing ? 1 : 0);
-    const WalkFn fn = walk_kernel(root_filter, stats, timing != nullptr);
-    const int grid = walk_grid(fn, variant, ctas_per_sm, n_tiles);
+    const WalkFn fn = walk_kernel(root_filter, stats);
+    const int grid = walk_grid(fn, anyhit_variant(root_filter, stats),
+                               ctas_per_sm, n_tiles);
     if (grid < 0) return -grid;
     fn<<<grid, kRayTile, 0, s>>>(a);
     return (int)cudaGetLastError();
   }
   a.cluster = cluster;
-  return launch_closest(a, fused, root_filter, stats, timing != nullptr, s);
+  return launch_closest(a, fused, root_filter, stats, s);
 }
 
-// The tile walk (one CTA per tile in tile order): the any hit as it was
-// before the any-hit walk, and the closest hit as it was before the
-// closest walk, kept to be timed against them. Same arguments and
-// results as rt_intersect (anyhit=1 takes no fused tables; order,
-// n_split and work are not used).
-int rt_tile_walk(const void* tri, const void* cbox, const void* aux,
-                 const void* torder, const void* counts, const void* idmap,
-                 void* timing, void* t_out, void* tri_out, void* vid_out,
-                 void* counters, int n_tiles, int rp, int cs, int n_sub,
-                 int tc, int n_pad, int backface, int anyhit, int fused,
-                 int root_filter, int stats, void* stream) {
-  if (check_shapes(n_tiles, rp, n_sub, tc) || (anyhit && fused) ||
-      (fused && n_pad != cs * n_sub * tc) ||
-      (fused && (idmap == nullptr || vid_out == nullptr)) ||
-      (stats && counters == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n_tiles == 0) return 0;
-  const Args a{(const float*)tri, (const float*)cbox, (const float*)aux,
-               (const int*)torder, (const int*)counts, (const int*)idmap,
-               nullptr, nullptr, nullptr, (long long*)timing, (float*)t_out,
-               (int*)tri_out, (int*)vid_out, (unsigned long long*)counters,
-               n_tiles, rp, cs, n_sub, tc, n_pad, backface};
-  const WalkFn fn = tile_walk_kernel(anyhit, fused, root_filter, stats,
-                                     timing != nullptr);
-  fn<<<n_tiles, kRayTile, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// Resources of a kernel variant (walk=1 the any-hit walk or the closest
-// walk, 0 the tile walk): out[0..4] = resident CTAs per SM at 512
-// threads, registers per thread, local (spill) bytes per thread, static
-// shared bytes, SMs; out[5] = clusters of `cluster` CTAs of the closest
-// walk resident at once on the card (0 for the other kernels).
-int rt_resources(int walk, int anyhit, int fused, int root_filter, int stats,
+// Resources of a walk's variant (anyhit=1 the any-hit walk, 0 the closest
+// walk): out[0..4] = resident CTAs per SM at 512 threads, registers per
+// thread, local (spill) bytes per thread, static shared bytes, SMs;
+// out[5] = clusters of `cluster` CTAs of the closest walk resident at
+// once on the card (0 for the any-hit walk).
+int rt_resources(int anyhit, int fused, int root_filter, int stats,
                  int cluster, int* out) {
   if ((anyhit && fused) || cluster < 1 || cluster > 8) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool closest = walk && !anyhit;
-  const WalkFn fn = walk ? (anyhit ? walk_kernel(root_filter, stats, 0)
-                                   : closest_kernel(fused, root_filter, stats, 0))
-                         : tile_walk_kernel(anyhit, fused, root_filter, stats, 0);
+  const WalkFn fn = anyhit ? walk_kernel(root_filter, stats)
+                           : closest_kernel(fused, root_filter, stats);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, (const void*)fn);
   int dev = 0;
@@ -1420,7 +1196,7 @@ int rt_resources(int walk, int anyhit, int fused, int root_filter, int stats,
   out[2] = (int)attr.localSizeBytes;
   out[3] = (int)attr.sharedSizeBytes;
   out[5] = 0;
-  if (err == cudaSuccess && closest) {
+  if (err == cudaSuccess && !anyhit) {
     const int n = resident_clusters(fn, cluster);
     if (n < 0) return -n;
     out[5] = n;

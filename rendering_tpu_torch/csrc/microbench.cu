@@ -3,17 +3,16 @@
 // test's product in f32 on the SIMT lanes and in TF32 on the tensor
 // cores (K9). They replace the three Pallas probes of the JAX package's
 // tools/microbench_vpu.py and tools/microbench_kernel.py, and give the
-// port measured ceilings in place of the data sheet's: chip_smoke.py's
+// port measured ceilings in place of the data sheet's: ops/microbench.py's
 // F32_OPS_RATE and HBM_RATE, and the bounds of mesh_intersect.cu.
 //
-// K8 and K9 come in two forms. The first carried the TPU grid over block
-// by block (one CTA per grid step, or per step and column tile): K8's
-// `grid_overhead_kernel` and K9's `pair_simt_v1_kernel` /
-// `pair_tf32_v1_kernel`. The second takes the sequential grid as a loop
-// inside persistent CTAs: `grid_overhead_loop_kernel`,
-// `pair_simt_kernel` (a register-tiled outer product) and
-// `pair_wgmma_kernel` (wgmma on tables streamed by bulk copies). The
-// first forms stay as the measured baseline of the second.
+// K8 comes in two forms: `grid_overhead_kernel` carries the TPU grid over
+// block by block (one CTA per grid step), `grid_overhead_loop_kernel`
+// takes the sequential grid as a loop inside persistent CTAs. K9 takes
+// its grid as such a loop: `pair_simt_kernel` (a register-tiled outer
+// product) and `pair_wgmma_kernel` (wgmma on tables streamed by bulk
+// copies). K9's first form, one CTA per step and column tile, lost to
+// them on every configuration measured (PERF.md section 6) and is gone.
 //
 // Built with the flags of mesh_intersect.cu (-fmad=false, IEEE division),
 // so a multiply and an add that the source writes apart stay apart.
@@ -197,7 +196,7 @@ constexpr int kMaxK = 128;
 // u >= 0, u <= 1, v >= 0 (3 compares), u + v (1 add) and its compare,
 // t >= 0 (1 compare), ok ? t : 3e38 (1 select), tm < best (1 compare)
 // and its two selects. Predicate logic and the row's index are left out,
-// so it stays a lower bound; chip_smoke.py reads it against the SASS.
+// so it stays a lower bound.
 constexpr int kEpilogueOps = 1 + 1 + 4 + 3 + 3 + 1 + 1 + 1 + 1 + 1 + 2;
 
 struct PairArgs {
@@ -245,151 +244,7 @@ __device__ __forceinline__ void epilogue_store(const PairArgs& a, int col,
   if (a.keep) a.sink[col] = (float)best_row;
 }
 
-// ---- K9, first form: one CTA per (step, column tile) -----------------------
-// pair_simt_v1_kernel: one column per thread, the coef rows staged in
-// shared memory a row group at a time (all four row blocks of the group),
-// one shared load per multiply-add, feats read from global memory in every
-// row group. pair_tf32_v1_kernel: nvcuda::wmma m16n16k8 on 64 columns a
-// CTA, the row group restaged and rounded by every CTA of its step, the
-// product stored back to shared memory for the epilogue. Kept as the
-// baseline of the second form; sink is (64, br), overwritten group by
-// group.
-constexpr int kSimtV1Cols = 128;  // one column per thread
-constexpr int kSimtV1Rows = 8;    // rows per row block in a staged group
-constexpr int kTcV1Cols = 64;     // 4 warps x 16 columns
-constexpr int kTcV1Rows = 16;     // one m16 tile per row block
-
-template <bool EPILOGUE>
-__global__ void __launch_bounds__(kSimtV1Cols) pair_simt_v1_kernel(PairArgs a) {
-  __shared__ float cs[4 * kSimtV1Rows * kMaxK];
-  const int col = blockIdx.x * kSimtV1Cols + threadIdx.x;
-  const int step = blockIdx.y;
-  const float* coef = a.coef + (size_t)(step % a.n_tab) * 4 * a.tc * a.k;
-  float best = 3.0e38f;
-  int best_row = 0;
-  float p0 = 0.0f;
-  for (int r0 = 0; r0 < a.tc; r0 += kSimtV1Rows) {
-    __syncthreads();
-    // Staged row q = blk * kSimtV1Rows + j is P's row blk * tc + r0 + j.
-    for (int e = threadIdx.x; e < 4 * kSimtV1Rows * a.k; e += kSimtV1Cols) {
-      const int q = e / a.k, kk = e - q * a.k;
-      const int row = (q / kSimtV1Rows) * a.tc + r0 + q % kSimtV1Rows;
-      cs[e] = coef[(size_t)row * a.k + kk];
-    }
-    __syncthreads();
-    float acc[4 * kSimtV1Rows];
-    {
-      const float f = a.feats[col];
-#pragma unroll
-      for (int q = 0; q < 4 * kSimtV1Rows; ++q)
-        acc[q] = __fmul_rn(cs[q * a.k], f);
-    }
-    for (int kk = 1; kk < a.k; ++kk) {
-      const float f = a.feats[(size_t)kk * a.br + col];
-#pragma unroll
-      for (int q = 0; q < 4 * kSimtV1Rows; ++q)
-        acc[q] = __fadd_rn(acc[q], __fmul_rn(cs[q * a.k + kk], f));
-    }
-    if (a.keep) {
-#pragma unroll
-      for (int q = 0; q < 4 * kSimtV1Rows; ++q)
-        a.sink[(size_t)q * a.br + col] = acc[q];
-    }
-    if (EPILOGUE) {
-#pragma unroll
-      for (int j = 0; j < kSimtV1Rows; ++j)
-        epilogue_row(acc[j], acc[kSimtV1Rows + j], acc[2 * kSimtV1Rows + j],
-                     acc[3 * kSimtV1Rows + j], r0 + j, best, best_row);
-    } else if (r0 == 0) {
-      p0 = acc[0];
-    }
-  }
-  if (EPILOGUE) {
-    epilogue_store(a, col, epilogue_value(best, best_row), best_row);
-  } else {
-    a.scratch[(size_t)step * a.br + col] = p0;
-  }
-}
-
-template <bool EPILOGUE>
-__global__ void __launch_bounds__(128) pair_tf32_v1_kernel(PairArgs a, int kp) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) float smem[];
-  float* as = smem;                        // (4 * kTcV1Rows, kp): the group
-  float* bs = as + 4 * kTcV1Rows * kp;     // (kp, kTcV1Cols): this CTA's feats
-  float* cs = bs + kp * kTcV1Cols;         // (4 * kTcV1Rows, kTcV1Cols): P
-  const int warp = threadIdx.x / 32;
-  const int col0 = blockIdx.x * kTcV1Cols;
-  const int step = blockIdx.y;
-  const float* coef = a.coef + (size_t)(step % a.n_tab) * 4 * a.tc * a.k;
-  for (int e = threadIdx.x; e < kp * kTcV1Cols; e += blockDim.x) {
-    const int kk = e / kTcV1Cols, c = e - kk * kTcV1Cols;
-    bs[e] = kk < a.k
-                ? wmma::__float_to_tf32(a.feats[(size_t)kk * a.br + col0 + c])
-                : 0.0f;
-  }
-  float best = 3.0e38f;
-  int best_row = 0;
-  float p0 = 0.0f;
-  for (int r0 = 0; r0 < a.tc; r0 += kTcV1Rows) {
-    __syncthreads();
-    // Staged row q = blk * kTcV1Rows + j is P's row blk * tc + r0 + j.
-    for (int e = threadIdx.x; e < 4 * kTcV1Rows * kp; e += blockDim.x) {
-      const int q = e / kp, kk = e - q * kp;
-      const int row = (q / kTcV1Rows) * a.tc + r0 + q % kTcV1Rows;
-      as[e] = kk < a.k ? wmma::__float_to_tf32(coef[(size_t)row * a.k + kk])
-                       : 0.0f;
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 8, float> acc[4];
-#pragma unroll
-    for (int blk = 0; blk < 4; ++blk) wmma::fill_fragment(acc[blk], 0.0f);
-    for (int kk = 0; kk < kp; kk += 8) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32,
-                     wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, bs + kk * kTcV1Cols + warp * 16, kTcV1Cols);
-#pragma unroll
-      for (int blk = 0; blk < 4; ++blk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32,
-                       wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, as + blk * kTcV1Rows * kp + kk, kp);
-        wmma::mma_sync(acc[blk], fa, fb, acc[blk]);
-      }
-    }
-#pragma unroll
-    for (int blk = 0; blk < 4; ++blk)
-      wmma::store_matrix_sync(cs + blk * kTcV1Rows * kTcV1Cols + warp * 16,
-                              acc[blk], kTcV1Cols, wmma::mem_row_major);
-    __syncthreads();
-    if (a.keep) {
-      for (int e = threadIdx.x; e < 4 * kTcV1Rows * kTcV1Cols; e += blockDim.x)
-        a.sink[(size_t)(e / kTcV1Cols) * a.br + col0 + e % kTcV1Cols] = cs[e];
-    }
-    if (threadIdx.x < kTcV1Cols) {
-      const int c = threadIdx.x;
-      if (EPILOGUE) {
-        for (int j = 0; j < kTcV1Rows; ++j)
-          epilogue_row(cs[j * kTcV1Cols + c],
-                       cs[(kTcV1Rows + j) * kTcV1Cols + c],
-                       cs[(2 * kTcV1Rows + j) * kTcV1Cols + c],
-                       cs[(3 * kTcV1Rows + j) * kTcV1Cols + c], r0 + j, best,
-                       best_row);
-      } else if (r0 == 0) {
-        p0 = cs[c];
-      }
-    }
-  }
-  if (threadIdx.x < kTcV1Cols) {
-    const int col = col0 + threadIdx.x;
-    if (EPILOGUE) {
-      epilogue_store(a, col, epilogue_value(best, best_row), best_row);
-    } else {
-      a.scratch[(size_t)step * a.br + col] = p0;
-    }
-  }
-}
-
-// ---- K9, second form, HIGHEST: a register-tiled outer product --------------
+// ---- K9, HIGHEST: a register-tiled outer product ---------------------------
 // A persistent grid: CTA b takes column tile b % n_ct (kSimtCols columns)
 // and steps b / n_ct, b / n_ct + s_par, ... (s_par = gridDim.x / n_ct), so
 // the grid is as many CTAs as fit on the card, not n_steps x (br / 128).
@@ -402,9 +257,8 @@ __global__ void __launch_bounds__(128) pair_tf32_v1_kernel(PairArgs a, int kp) {
 // owns columns 4l .. 4l + 3. Per k a thread loads 4 float4 of coef (one
 // per block; the warp reads one address, a broadcast) and 1 float4 of
 // feats, then issues 64 multiplies and 64 adds: 5 shared loads per 128
-// f32 operations, against 1 per 2 in the first form. The epilogue runs on
-// the 64 accumulators in registers: det, tdet, udet and vdet of a (row,
-// column) sit in one thread. Each thread folds its rows of a step into
+// f32 operations. The epilogue runs on the 64 accumulators in registers:
+// det, tdet, udet and vdet of a (row, column) sit in one thread. Each thread folds its rows of a step into
 // (best, best_row) and the steps into one running min per column; the
 // warps' minima meet in shared memory and one atomicMin a column ends the
 // CTA. Without the epilogue warp 0 (row 0 of block 0) writes P[0].
@@ -568,7 +422,7 @@ pair_simt_kernel(PairArgs a, int n_ct) {
   }
 }
 
-// ---- K9, second form, DEFAULT: wgmma on streamed tables ---------------------
+// ---- K9, DEFAULT: wgmma on streamed tables ----------------------------------
 // The tables are packed once per call (pack_tf32_kernel, counted in K9's
 // time): each (n_tab, 4 tc, k) table is rounded by __float_to_tf32,
 // zero-padded to kp = roundup(k, 8) and written as the shared-memory image
@@ -885,22 +739,9 @@ pair_wgmma_kernel(PairArgs a, const float* __restrict__ packed, int kp_arg,
   }
 }
 
-// o = p_s + 0.5 o for s in step order, one column per thread: the first
-// form's second pass, which waits for memory at every step.
-__global__ void pair_recurrence_v1_kernel(const float* __restrict__ scratch,
-                                          float* __restrict__ o, int br,
-                                          int n_steps) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= br) return;
-  float v = o[col];
-  for (int s = 0; s < n_steps; ++s)
-    v = __fadd_rn(scratch[(size_t)s * br + col], __fmul_rn(v, 0.5f));
-  o[col] = v;
-}
-
-// The second form's: the same sums in the same order, with the loads of
-// kRecUnroll steps issued before their adds (they do not depend on o), so
-// a thread waits for memory once per kRecUnroll steps. Bound: the bytes of
+// o = p_s + 0.5 o for s in step order, one column per thread, with the
+// loads of kRecUnroll steps issued before their adds (they do not depend
+// on o), so a thread waits for memory once per kRecUnroll steps. Bound: the bytes of
 // scratch read once.
 constexpr int kRecUnroll = 16;
 
@@ -923,29 +764,6 @@ __global__ void pair_recurrence_kernel(const float* __restrict__ scratch,
   for (; s < n_steps; ++s)
     v = __fadd_rn(scratch[(size_t)s * br + col], __fmul_rn(v, 0.5f));
   o[col] = v;
-}
-
-template <bool EPILOGUE>
-cudaError_t launch_pair_v1(const PairArgs& a, bool tf32, cudaStream_t s) {
-  if (tf32) {
-    const int kp = (a.k + 7) / 8 * 8;
-    const size_t smem = sizeof(float) * (4 * kTcV1Rows * kp + kp * kTcV1Cols +
-                                         4 * kTcV1Rows * kTcV1Cols);
-    cudaError_t err = cudaFuncSetAttribute(
-        pair_tf32_v1_kernel<EPILOGUE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    pair_tf32_v1_kernel<EPILOGUE>
-        <<<dim3(a.br / kTcV1Cols, a.n_steps), 128, smem, s>>>(a, kp);
-  } else {
-    pair_simt_v1_kernel<EPILOGUE>
-        <<<dim3(a.br / kSimtV1Cols, a.n_steps), kSimtV1Cols, 0, s>>>(a);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || EPILOGUE) return err;
-  pair_recurrence_v1_kernel<<<(a.br + 127) / 128, 128, 0, s>>>(
-      a.scratch, a.o, a.br, a.n_steps);
-  return cudaGetLastError();
 }
 
 // The persistent grid: n_ct column tiles x s_par step strides, as many
@@ -1093,7 +911,7 @@ int mb_pack_tables(const void* coef, void* packed, int n_tab, int tc, int k,
   return (int)cudaGetLastError();
 }
 
-// K9, second form: n_steps products coef[s % n_tab] (4 tc, k) x feats
+// K9: n_steps products coef[s % n_tab] (4 tc, k) x feats
 // (k, br) into o (br,), which holds o_init on entry. tf32 selects the
 // tensor-core form, which reads the tables from packed (mb_pack_tables
 // of coef); epilogue the Moller-Trumbore epilogue (o >= +0 on entry, no
@@ -1131,29 +949,6 @@ int mb_pair_recurrence(const void* scratch, void* o, int br, int n_steps,
   pair_recurrence_kernel<<<(br + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
       (const float*)scratch, (float*)o, br, n_steps);
   return (int)cudaGetLastError();
-}
-
-// K9, first form: n_steps x (br / column tile) CTAs; the arguments of
-// mb_pair_product without packed. keep writes sink (32, br) at highest,
-// (64, br) at TF32, overwritten group by group.
-int mb_pair_product_v1(const void* coef, const void* feats, void* o,
-                       void* scratch, void* sink, int n_tab, int tc, int br,
-                       int k, int n_steps, int tf32, int epilogue, int keep,
-                       void* stream) {
-  const int row_group = tf32 ? kTcV1Rows : kSimtV1Rows;
-  const int col_tile = tf32 ? kTcV1Cols : kSimtV1Cols;
-  if (n_tab < 1 || tc < row_group || tc % row_group || br < col_tile ||
-      br % col_tile || k < 1 || k > kMaxK || n_steps < 1 ||
-      n_steps > 65535 || (!epilogue && scratch == nullptr) ||
-      (keep && sink == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const PairArgs a{(const float*)coef, (const float*)feats, (float*)o,
-                   (float*)scratch, (float*)sink, n_tab, tc, br, k, n_steps,
-                   keep};
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(epilogue ? launch_pair_v1<true>(a, tf32 != 0, s)
-                        : launch_pair_v1<false>(a, tf32 != 0, s));
 }
 
 const char* mb_error_string(int code) {

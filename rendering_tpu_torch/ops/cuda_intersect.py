@@ -30,10 +30,9 @@ many threads, the other tiles whole on one CTA each. Every any hit runs
 the any-hit walk, which evaluates the same pairs with the unresolved
 rays packed into the lowest lanes, a persistent grid of one CTA per SM
 that takes the tiles heaviest first, and its row staging overlapped
-with compute. The tile walk (one CTA per tile in tile order) of both
-(`*_tile_walk*` in `KERNELS`) stays only to be timed against them. The
-source file's header says more; `intersect_plain`'s stats count the work
-each walk issues.
+with compute. The source file's header says more, and PERF.md section 6
+how the walks were measured against the one-CTA-a-tile walk they
+replaced; `intersect_plain`'s stats count the work each walk issues.
 
 Pipeline of one query (`closest_hit` / `any_hit`):
 
@@ -99,8 +98,8 @@ WALK_CTAS_PER_SM = 1
 # The closest walk's CTAs per cluster (a heavy tile split over them; 8 is
 # the portable cluster limit), and the sizes it takes. 4 by measurement on
 # an H100: with SPLIT_FACTOR 2 every kept closest query ran faster than on
-# the tile walk in turns, and the bouncing frame's closest hits took the
-# least kernel time (PERF.md, PR 8).
+# the one-CTA-a-tile walk it replaced, in turns, and the bouncing frame's
+# closest hits took the least kernel time (PERF.md, PR 8).
 CLUSTER_SIZES = (1, 2, 4, 8)
 CLOSEST_CLUSTER = 4
 # A tile is heavy, and the closest walk splits it over a cluster, when its
@@ -519,7 +518,8 @@ def intersect_plain(tb: IntersectTables, prep: Prepared, *, anyhit: bool,
       "union_pairs": the tile's unresolved rays (t >= 0) x tc, what the
         TPU formulation evaluates and the least an exact kernel must;
       "warp_pairs": 32 x tc x the 32-lane warps (lanes in tile order)
-        holding an unresolved ray, the lane-slots the tile walk issues;
+        holding an unresolved ray, the lane-slots a walk issues that
+        keeps the rays in their lanes;
       "packed_pairs": the same over the warps of the any-hit walk, whose
         rays unresolved at the super's start sit packed in the lowest
         lanes (a stable compaction);
@@ -628,11 +628,9 @@ def _library():
         path, _ = nvcc.build_library(SOURCE)
         lib = ctypes.CDLL(path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rt_intersect.argtypes = [ptr] * 14 + [i32] * 13 + [ptr]
+        lib.rt_intersect.argtypes = [ptr] * 13 + [i32] * 13 + [ptr]
         lib.rt_intersect.restype = ctypes.c_int
-        lib.rt_tile_walk.argtypes = [ptr] * 11 + [i32] * 11 + [ptr]
-        lib.rt_tile_walk.restype = ctypes.c_int
-        lib.rt_resources.argtypes = [i32] * 6 + [ptr]
+        lib.rt_resources.argtypes = [i32] * 5 + [ptr]
         lib.rt_resources.restype = ctypes.c_int
         lib.rt_prepass.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
         lib.rt_prepass.restype = ctypes.c_int
@@ -649,9 +647,8 @@ class CudaKernel:
     remaps through the idmap), with or without the root filter (K4) and
     the counters (K3). A closest hit launches the closest walk
     (`closest_walk_kernel`), an any hit the any-hit walk
-    (`anyhit_walk_kernel`); `tile_walk` marks the tile walk they replaced,
-    which no render, train or CLI path launches (it stays to be timed
-    against them). `launches` counts the launches made through it."""
+    (`anyhit_walk_kernel`). `launches` counts the launches made through
+    it."""
 
     name: str
     anyhit: bool
@@ -659,24 +656,19 @@ class CudaKernel:
     root_filter: bool
     collect_stats: bool
     two_phase: bool = False
-    tile_walk: bool = False
     launches: int = 0
 
     def __call__(self, tb: IntersectTables, prep: Prepared, *,
                  backface_culling: bool, idmap: torch.Tensor | None = None,
-                 timing: torch.Tensor | None = None,
-                 ctas_per_sm: int = WALK_CTAS_PER_SM,
                  cluster: int = CLOSEST_CLUSTER):
         """Raw (t (Rp,), tri (Rp,) int32) in padded chunk-space ids; the
         fused closest hit returns (t, mid, vid) through idmap instead,
         with t = FMAX, mid = -1 and vid = 0 on a miss. With the counters
         the tuple ends in box_tests, tri_tests (int64 0-d tensors).
-        `timing`, an (n_tiles, 3) int64 CUDA tensor, receives each
-        tile's [start ns, end ns, SM id] (the kernel's TIMING variant).
-        `ctas_per_sm` sets the any-hit walk's grid (0: as many as fit)
-        and `cluster` the closest walk's CTAs per cluster
-        (CLUSTER_SIZES), for measuring them against their constants; the
-        closest walk splits the heavy tiles of `prep` (`tile_schedule`)."""
+        `cluster` sets the closest walk's CTAs per cluster
+        (CLUSTER_SIZES), for holding each size to the plain version; the
+        closest walk splits the heavy tiles of `prep` (`tile_schedule`).
+        The any-hit walk runs WALK_CTAS_PER_SM CTAs on every SM."""
         remap = self.fused and not self.anyhit
         aux = prep.aux
         checks = [("tri", tb.tri, torch.float32),
@@ -690,8 +682,6 @@ class CudaKernel:
             if idmap is None:
                 raise ValueError(f"{self.name}: needs the fused idmap")
             checks.append(("idmap", idmap, torch.int32))
-        if timing is not None:
-            checks.append(("timing", timing, torch.int64))
         for name, x, dt in checks:
             if not x.is_cuda or x.dtype != dt or not x.is_contiguous():
                 raise ValueError(f"{self.name}: {name} must be a contiguous "
@@ -700,14 +690,13 @@ class CudaKernel:
         if tb.tri_chunk % _PIECE:
             raise ValueError(f"{self.name}: tri_chunk must be a multiple of "
                              f"{_PIECE}, got {tb.tri_chunk}")
-        if not self.tile_walk and (tb.tri.data_ptr() % 16
-                                   or tb.cbox.data_ptr() % 16):
+        if tb.tri.data_ptr() % 16 or tb.cbox.data_ptr() % 16:
             raise ValueError(f"{self.name}: tri and cbox must be 16-byte "
                              f"aligned")
         if not self.anyhit and cluster not in CLUSTER_SIZES:
             raise ValueError(f"{self.name}: cluster must be one of "
                              f"{CLUSTER_SIZES}, got {cluster}")
-        if not self.anyhit and not self.tile_walk and tb.n_sub > _CULL_REGS:
+        if not self.anyhit and tb.n_sub > _CULL_REGS:
             raise ValueError(f"{self.name}: the closest walk takes at most "
                              f"{_CULL_REGS} cull chunks a super, got "
                              f"{tb.n_sub}")
@@ -716,9 +705,6 @@ class CudaKernel:
         if remap and tuple(idmap.shape) != (2, n_pad):
             raise ValueError(f"{self.name}: idmap must be (2, {n_pad}), got "
                              f"{tuple(idmap.shape)}")
-        if timing is not None and tuple(timing.shape) != (prep.n_tiles, 3):
-            raise ValueError(f"{self.name}: timing must be ({prep.n_tiles}, "
-                             f"3), got {tuple(timing.shape)}")
         lib = _library()
         rp = aux.shape[1]
         dev = aux.device
@@ -734,30 +720,19 @@ class CudaKernel:
         # launch on the tensors' card
         with span("rt.intersect.kernel"), torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if self.tile_walk:
-                rc = lib.rt_tile_walk(
-                    tb.tri.data_ptr(), tb.cbox.data_ptr(), aux.data_ptr(),
-                    prep.torder.data_ptr(), prep.counts.data_ptr(),
-                    ptr(idmap if remap else None), ptr(timing),
-                    outs[0].data_ptr(), outs[1].data_ptr(),
-                    ptr(outs[2] if remap else None), ptr(counters),
-                    prep.n_tiles, rp, cs, tb.n_sub, tb.tri_chunk, n_pad,
-                    int(backface_culling), int(self.anyhit), int(remap),
-                    int(self.root_filter), int(self.collect_stats), stream)
-            else:
-                work = (torch.zeros((1,), dtype=torch.int32, device=dev)
-                        if self.anyhit else None)
-                rc = lib.rt_intersect(
-                    tb.tri.data_ptr(), tb.cbox.data_ptr(), aux.data_ptr(),
-                    prep.torder.data_ptr(), prep.counts.data_ptr(),
-                    ptr(idmap if remap else None), prep.order.data_ptr(),
-                    prep.n_split.data_ptr(), ptr(work),
-                    ptr(timing), outs[0].data_ptr(), outs[1].data_ptr(),
-                    ptr(outs[2] if remap else None), ptr(counters),
-                    prep.n_tiles, rp, cs, tb.n_sub, tb.tri_chunk, n_pad,
-                    int(backface_culling), int(self.anyhit), int(remap),
-                    int(self.root_filter), int(self.collect_stats),
-                    ctas_per_sm, cluster, stream)
+            work = (torch.zeros((1,), dtype=torch.int32, device=dev)
+                    if self.anyhit else None)
+            rc = lib.rt_intersect(
+                tb.tri.data_ptr(), tb.cbox.data_ptr(), aux.data_ptr(),
+                prep.torder.data_ptr(), prep.counts.data_ptr(),
+                ptr(idmap if remap else None), prep.order.data_ptr(),
+                prep.n_split.data_ptr(), ptr(work),
+                outs[0].data_ptr(), outs[1].data_ptr(),
+                ptr(outs[2] if remap else None), ptr(counters),
+                prep.n_tiles, rp, cs, tb.n_sub, tb.tri_chunk, n_pad,
+                int(backface_culling), int(self.anyhit), int(remap),
+                int(self.root_filter), int(self.collect_stats),
+                WALK_CTAS_PER_SM, cluster, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: "
                                f"{lib.rt_error_string(rc).decode()}")
@@ -768,15 +743,12 @@ class CudaKernel:
 
 
 def variant_name(*, anyhit: bool, fused: bool, root_filter: bool,
-                 collect_stats: bool, two_phase: bool = False,
-                 tile_walk: bool = False) -> str:
+                 collect_stats: bool, two_phase: bool = False) -> str:
     """A variant's name: closest_hit / any_hit, "fused_" before it,
-    "_two_phase" (K6), "_tile_walk", "_rootfilter" and "_stats" after
-    it."""
+    "_two_phase" (K6), "_rootfilter" and "_stats" after it."""
     return (("fused_" if fused else "") + ("any_hit" if anyhit else
                                            "closest_hit")
             + ("_two_phase" if two_phase else "")
-            + ("_tile_walk" if tile_walk else "")
             + ("_rootfilter" if root_filter else "")
             + ("_stats" if collect_stats else ""))
 
@@ -785,19 +757,14 @@ _FLAGS = ("anyhit", "fused", "root_filter", "collect_stats")
 # Every variant, by name. The fused any hit is the any-hit walk over the
 # fused tables, counted apart from the single-mesh one; so are the two
 # launches of each two-phase shadow query (K6, `any_hit_two_phase`),
-# which run the single-mesh any hit over super ranges of the tables, and
-# the tile walk's any hit and closest hits (`*_tile_walk*`).
+# which run the single-mesh any hit over super ranges of the tables.
 KERNELS = {
     variant_name(**kw): CudaKernel(variant_name(**kw), **kw)
     for kw in [dict(zip(_FLAGS, flags))
                for flags in itertools.product((False, True), repeat=4)]
     + [dict(anyhit=True, fused=False, root_filter=rf, collect_stats=cs,
-            **{mode: True})
-       for mode in ("two_phase", "tile_walk")
+            two_phase=True)
        for rf, cs in itertools.product((False, True), repeat=2)]
-    + [dict(anyhit=False, fused=f, root_filter=rf, collect_stats=cs,
-            tile_walk=True)
-       for f, rf, cs in itertools.product((False, True), repeat=3)]
 }
 closest_hit_kernel = KERNELS["closest_hit"]
 any_hit_kernel = KERNELS["any_hit"]
@@ -862,7 +829,9 @@ prepass_kernel = KERNELS["prepass"] = PrepassKernel()
 
 
 def resources(name: str, *, cluster: int = CLOSEST_CLUSTER) -> dict:
-    """Kernel variant `name`'s resources on the current card: resident
+    """The resources on the current card of the walk that kernel variant
+    `name` launches (the any-hit or the closest walk, with its flags):
+    resident
     CTAs per SM at its block size (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     registers and local (spill) bytes per thread, static shared bytes,
     the card's SM count, and for the closest walk at `cluster` CTAs per
@@ -870,7 +839,7 @@ def resources(name: str, *, cluster: int = CLOSEST_CLUSTER) -> dict:
     0 for the other kernels)."""
     k = KERNELS[name]
     out = (ctypes.c_int * 6)()
-    rc = _library().rt_resources(int(not k.tile_walk), int(k.anyhit),
+    rc = _library().rt_resources(int(k.anyhit),
                                  int(k.fused and not k.anyhit),
                                  int(k.root_filter), int(k.collect_stats),
                                  cluster, out)

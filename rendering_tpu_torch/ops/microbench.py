@@ -3,13 +3,10 @@ issue rate with and without FMA (K7), the cost of a grid's CTAs and of
 its steps (K8) and the pair test's product in f32 and TF32 (K9), a
 Triton twin of K7, and the plain PyTorch version of each.
 
-K8 and K9 have two forms (csrc/microbench.cu): the first carried the TPU
-grid over as one CTA per step (`grid_overhead`, `pair_product(...,
-version=1)`), the second takes the steps as a loop inside persistent CTAs
-(`grid_overhead_loop`, `pair_product`, whose TF32 form first packs the
-tables with `pack_tables`). The first forms stay as the baseline that
-chip_smoke.py and tools/microbench_kernel_torch.py measure the second
-against.
+K8 has two forms (csrc/microbench.cu): `grid_overhead` carries the TPU
+grid over as one CTA per step, `grid_overhead_loop` takes the steps as a
+loop inside persistent CTAs, as K9 does (`pair_product`, whose TF32 form
+first packs the tables with `pack_tables`).
 
 They replace the Pallas probes of the JAX package's tools
 (`tools/microbench_vpu.py::_fma_bench`, `tools/microbench_kernel.py`'s
@@ -20,6 +17,10 @@ each TPU grid maps onto the card. `tools/microbench_vpu_torch.py` and
 Every wrapper checks its tensors and takes the plain version for CPU
 tensors; for CUDA tensors it launches the kernel or raises. Each kernel
 counts its launches (`KERNELS`).
+
+The card's data-sheet rates that every bound of the port is computed at
+(`F32_FLOPS_RATE`, `F32_OPS_RATE`, `HBM_RATE`) are defined here, beside
+the probes that measure what the card reaches.
 
 One departure from the TPU kernels: K9's output starts from an explicit
 `o_init`, where `_mm_kernel` read its output block before writing it
@@ -46,13 +47,11 @@ T_NONE = 3.0e38             # K9's "no accepted t"
 PRECISIONS = ("highest", "default")
 MAX_CHAINS = 8              # csrc/microbench.cu kMaxChains
 MAX_K = 128                 # csrc/microbench.cu kMaxK
-VERSIONS = (2, 1)           # K9's forms: the second, then the first
-# csrc/microbench.cu: (row group, column tile) of each form's SIMT
-# (highest) and tensor-core (default) pair kernels; tc and br must be
-# multiples. The second form's: kSimtChunk x kSimtCols, and kWgN x the
-# wgmma kernel's widest column tile (4 warpgroups x 64 columns).
-PAIR_TILES = {(2, "highest"): (32, 128), (2, "default"): (32, 256),
-              (1, "highest"): (8, 128), (1, "default"): (16, 64)}
+# csrc/microbench.cu: (row group, column tile) of K9's SIMT (highest)
+# and tensor-core (default) kernels; tc and br must be multiples:
+# kSimtChunk x kSimtCols, and kWgN x the wgmma kernel's widest column
+# tile (4 warpgroups x 64 columns).
+PAIR_TILES = {"highest": (32, 128), "default": (32, 256)}
 WG_ROWS = 32                # csrc/microbench.cu kWgN: a packed chunk's rows
 # K9 at default precision against its plain version (tf32_disagreement).
 TF32_SUM_TOL = 1e-6
@@ -60,6 +59,15 @@ TF32_T_RTOL = 1e-3
 TF32_MAX_FLIPS = 1 / 32
 
 SOURCE = os.path.join(nvcc.CSRC, "microbench.cu")
+
+# An H100 SXM's data-sheet rates, at which the port's bounds are stated:
+# f32 with an FMA counted as two operations, and HBM. The kernels are
+# built with -fmad=false, so every f32 multiply, add and compare issues
+# on its own: one per lane per clock, 132 SMs x 128 lanes x 1.98 GHz =
+# 33.5e12/s, half the FMA-counted rate.
+F32_FLOPS_RATE = 67e12
+F32_OPS_RATE = F32_FLOPS_RATE / 2
+HBM_RATE = 3.35e12          # bytes/s
 
 
 @dataclasses.dataclass
@@ -70,19 +78,16 @@ class Launches:
     launches: int = 0
 
 
-def pair_name(precision: str, epilogue: bool, version: int = 2) -> str:
-    """K9's launch count: `pair_product_<precision>[_epilogue]` for the
-    second form, `pair_product_v1_...` for the first."""
-    return ("pair_product_" + ("v1_" if version == 1 else "") + precision
-            + ("_epilogue" if epilogue else ""))
+def pair_name(precision: str, epilogue: bool) -> str:
+    """K9's launch count: `pair_product_<precision>[_epilogue]`."""
+    return "pair_product_" + precision + ("_epilogue" if epilogue else "")
 
 
 KERNELS = {name: Launches(name) for name in (
     "fma_chain_fused", "fma_chain_unfused", "fma_chain_triton",
     "grid_overhead", "grid_overhead_loop", "pair_pack_tf32",
     "pair_recurrence",
-    *(pair_name(p, e, v) for v in VERSIONS for e in (False, True)
-      for p in PRECISIONS))}
+    *(pair_name(p, e) for e in (False, True) for p in PRECISIONS))}
 
 _lib = None
 
@@ -98,11 +103,10 @@ def _library():
         lib.mb_fma_chain.argtypes = [ptr, ptr] + [i32] * 5 + [ptr]
         lib.mb_pack_tables.argtypes = [ptr, ptr] + [i32] * 3 + [ptr]
         lib.mb_pair_product.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
-        lib.mb_pair_product_v1.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
         lib.mb_pair_recurrence.argtypes = [ptr, ptr, i32, i32, ptr]
         for fn in (lib.mb_grid_overhead, lib.mb_grid_overhead_loop,
                    lib.mb_fma_chain, lib.mb_pack_tables, lib.mb_pair_product,
-                   lib.mb_pair_recurrence, lib.mb_pair_product_v1):
+                   lib.mb_pair_recurrence):
             fn.restype = ctypes.c_int
         lib.mb_error_string.argtypes = [ctypes.c_int]
         lib.mb_error_string.restype = ctypes.c_char_p
@@ -446,8 +450,7 @@ def pair_recurrence(scratch: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 def pair_product_fn(feats: torch.Tensor, coef: torch.Tensor,
                     o_init: torch.Tensor, *, tc: int, n_steps: int,
-                    precision: str = "highest", epilogue: bool = False,
-                    version: int = 2):
+                    precision: str = "highest", epilogue: bool = False):
     """Checks K9's inputs once and returns a function of no arguments that
     computes `pair_product` of them: a timed loop calls it without the
     check of o_init's sign, which waits for the card. The tensors must not
@@ -455,9 +458,6 @@ def pair_product_fn(feats: torch.Tensor, coef: torch.Tensor,
     if precision not in PRECISIONS:
         raise ValueError(f"pair_product: precision must be one of "
                          f"{PRECISIONS}, got {precision!r}")
-    if version not in VERSIONS:
-        raise ValueError(f"pair_product: version must be one of {VERSIONS}, "
-                         f"got {version!r}")
     if feats.dim() != 2 or coef.dim() != 3:
         raise ValueError("pair_product: feats must be (k, br) and coef "
                          "(n_tab, 4 tc, k)")
@@ -475,15 +475,15 @@ def pair_product_fn(feats: torch.Tensor, coef: torch.Tensor,
     kw = dict(tc=tc, n_steps=n_steps, precision=precision, epilogue=epilogue)
     if not feats.is_cuda:
         return lambda: pair_product_plain(feats, coef, o_init, **kw)
-    rows, cols = PAIR_TILES[version, precision]
-    most_steps = 65535 if version == 1 else (2**31 - 1) // br
+    rows, cols = PAIR_TILES[precision]
+    most_steps = (2**31 - 1) // br
     if tc % rows or br % cols or k > MAX_K or n_steps > most_steps:
-        raise ValueError(f"pair_product ({precision}, version {version}) on "
-                         f"the card needs tc a multiple of {rows}, br of "
-                         f"{cols}, k <= {MAX_K} and n_steps <= {most_steps}; "
+        raise ValueError(f"pair_product ({precision}) on the card needs tc "
+                         f"a multiple of {rows}, br of {cols}, k <= {MAX_K} "
+                         f"and n_steps <= {most_steps}; "
                          f"got tc={tc}, br={br}, k={k}, n_steps={n_steps}")
     tf32 = int(precision == "default")
-    name = pair_name(precision, epilogue, version)
+    name = pair_name(precision, epilogue)
 
     def run() -> torch.Tensor:
         out = o_init.clone()
@@ -494,36 +494,30 @@ def pair_product_fn(feats: torch.Tensor, coef: torch.Tensor,
                 None if scratch is None else scratch.data_ptr(), None)
         sizes = (coef.shape[0], tc, br, k, n_steps, tf32, int(epilogue), 0)
         with torch.cuda.device(feats.device):
-            if version == 1:
-                _launch(name, _library().mb_pair_product_v1, *ptrs, *sizes)
-            else:
-                packed = pack_tables(coef, tc) if tf32 else None
-                _launch(name, _library().mb_pair_product, *ptrs,
-                        None if packed is None else packed.data_ptr(), *sizes)
-                if scratch is not None:
-                    pair_recurrence(scratch, out)
+            packed = pack_tables(coef, tc) if tf32 else None
+            _launch(name, _library().mb_pair_product, *ptrs,
+                    None if packed is None else packed.data_ptr(), *sizes)
+            if scratch is not None:
+                pair_recurrence(scratch, out)
         return out
     return run
 
 
 def pair_product(feats: torch.Tensor, coef: torch.Tensor,
                  o_init: torch.Tensor, *, tc: int, n_steps: int,
-                 precision: str = "highest", epilogue: bool = False,
-                 version: int = 2) -> torch.Tensor:
-    """K9: `pair_product_plain` on the card. The second form (csrc/
-    microbench.cu pair_simt_kernel for `highest`; for `default`
-    `pack_tables`, then pair_wgmma_kernel) runs the steps on a persistent
-    grid; `version=1` the first form (pair_simt_v1_kernel,
-    pair_tf32_v1_kernel: n_steps x (br / column tile) CTAs). feats (k,
-    br), coef (n_tab, 4 tc, k), o_init (1, br); with the epilogue o_init
+                 precision: str = "highest", epilogue: bool = False
+                 ) -> torch.Tensor:
+    """K9: `pair_product_plain` on the card (csrc/microbench.cu
+    pair_simt_kernel for `highest`; for `default` `pack_tables`, then
+    pair_wgmma_kernel), the steps on a persistent grid. feats (k, br),
+    coef (n_tab, 4 tc, k), o_init (1, br); with the epilogue o_init
     must be >= +0 and not NaN (the steps combine by an integer atomic min
     on the bits). On the card tc, br and k must fit the form's tiles
     (PAIR_TILES, k <= MAX_K); it raises, never falls back. Without the
-    epilogue the second form ends with `pair_recurrence`. CPU tensors take
-    the plain version."""
+    epilogue it ends with `pair_recurrence`. CPU tensors take the plain
+    version."""
     return pair_product_fn(feats, coef, o_init, tc=tc, n_steps=n_steps,
-                           precision=precision, epilogue=epilogue,
-                           version=version)()
+                           precision=precision, epilogue=epilogue)()
 
 
 # The epilogue's SIMT instructions per (row, column) pair and step

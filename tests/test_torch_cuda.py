@@ -240,8 +240,8 @@ def test_fused_rootfilter_stats_kernel_matches_plain(cuda, anyhit):
 @pytest.mark.parametrize("kind", shadow_cases.KINDS)
 def test_anyhit_walks_match_plain_on_adversarial_queries(
         cuda, kind, root_filter, collect_stats):
-    """The any-hit walk and the tile walk it replaced against the plain
-    version on the seeded adversarial shadow queries (interleaved
+    """The any-hit walk against the plain version on the seeded
+    adversarial shadow queries (interleaved
     pre-resolved lanes, rays leaving the mesh at the scene's bias, rays
     grazing cull-box faces) over a clipped mesh: t bit-equal, ids and
     counters equal."""
@@ -256,37 +256,12 @@ def test_anyhit_walks_match_plain_on_adversarial_queries(
                                root_filter=root_filter,
                                collect_stats=collect_stats)
     assert int((out_p[1] >= 0).sum()) > 20
-    for tile_walk in (False, True):
-        kernel = ci.KERNELS[ci.variant_name(**flags, tile_walk=tile_walk)]
-        out_k = kernel(tb, prep, backface_culling=True)
-        torch.cuda.synchronize()
-        assert torch.equal(out_k[0].view(torch.int32),
-                           out_p[0].view(torch.int32))
-        for a, b in zip(out_k[1:], out_p[1:]):
-            assert torch.equal(a.cpu(), b.cpu())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile_walk", [False, True])
-def test_anyhit_walk_records_every_tile(cuda, tile_walk):
-    """The TIMING variants record each tile once: end >= start, an SM id
-    below the card's SM count, and the results of the untimed launch."""
-    scene = build_flagship_scene(128, 64, n_tris=20_000, device=cuda)
-    tb = scene.meshes[0].itables
-    ro, rd, tl = (x.to(cuda) for x in _rays(8 * 512 + 77, seed=6))
-    prep = ci.prepare(tb, ro, rd, tl)
-    kernel = ci.KERNELS["any_hit_tile_walk" if tile_walk else "any_hit"]
-    timing = torch.zeros((prep.n_tiles, 3), dtype=torch.int64, device=cuda)
-    timed = kernel(tb, prep, backface_culling=True, timing=timing)
-    plain = kernel(tb, prep, backface_culling=True)
+    out_k = ci.KERNELS[ci.variant_name(**flags)](tb, prep,
+                                                 backface_culling=True)
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(timed, plain))
-    t = timing.cpu()
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert (t[:, 0] > 0).all() and (t[:, 1] >= t[:, 0]).all()
-    assert (t[:, 2] >= 0).all() and (t[:, 2] < sms).all()
-    res = ci.resources("any_hit_tile_walk" if tile_walk else "any_hit")
-    assert res["ctas_per_sm"] >= 1 and res["sms"] == sms
+    assert torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32))
+    for a, b in zip(out_k[1:], out_p[1:]):
+        assert torch.equal(a.cpu(), b.cpu())
 
 
 def _closest_tables(fused):
@@ -302,21 +277,16 @@ def _closest_tables(fused):
     return ci.build_fused_tables([va, vb], [True, False], reach=[ra, None])
 
 
-CLOSEST_WALKS = ("tile",) + ci.CLUSTER_SIZES
+CLOSEST_WALKS = ci.CLUSTER_SIZES
 
 
-def _closest_on_walk(name, walk, tables, prep, **kw):
-    """Closest-hit variant `name` on the tile walk or the closest walk at
-    `walk` CTAs per tile."""
-    k = ci.KERNELS[name]
+def _closest_on_walk(name, walk, tables, prep):
+    """Closest-hit variant `name` on the closest walk at `walk` CTAs per
+    tile."""
     fused = isinstance(tables, ci.FusedTables)
-    if walk == "tile":
-        k = ci.KERNELS[ci.variant_name(
-            anyhit=False, fused=k.fused, root_filter=k.root_filter,
-            collect_stats=k.collect_stats, tile_walk=True)]
-        walk = 1
-    return k(tables.geo if fused else tables, prep, backface_culling=True,
-             idmap=tables.idmap if fused else None, cluster=walk, **kw)
+    return ci.KERNELS[name](
+        tables.geo if fused else tables, prep, backface_culling=True,
+        idmap=tables.idmap if fused else None, cluster=walk)
 
 
 @pytest.mark.cuda
@@ -326,9 +296,9 @@ def _closest_on_walk(name, walk, tables, prep, **kw):
 def test_closest_walk_matches_plain(cuda, fused, root_filter, collect_stats,
                                     walk):
     """Every closest-hit variant (fused, root filter, counters) on the
-    closest walk at each cluster size and on the tile walk against its
-    plain version, on a ragged tile count with limits and resolved lanes:
-    t bit-equal, ids and counters equal; one launch counted."""
+    closest walk at each cluster size against its plain version, on a
+    ragged tile count with limits and resolved lanes: t bit-equal, ids
+    and counters equal; one launch counted."""
     tables = _closest_tables(fused).to(cuda)
     geo = tables.geo if fused else tables
     make = _multimesh_rays if fused else _rays
@@ -343,8 +313,7 @@ def test_closest_walk_matches_plain(cuda, fused, root_filter, collect_stats,
     out_k = _closest_on_walk(name, walk, tables, prep)
     torch.cuda.synchronize()
     launched = {k for k, v in ci.KERNELS.items() if v.launches != counts[k]}
-    assert launched == {name if walk != "tile" else name.replace(
-        "closest_hit", "closest_hit_tile_walk", 1)}
+    assert launched == {name}
     assert int((out_k[1] >= 0).sum()) > 100
     assert torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32))
     for a, b in zip(out_k[1:], out_p[1:]):
@@ -355,8 +324,8 @@ def test_closest_walk_matches_plain(cuda, fused, root_filter, collect_stats,
 @pytest.mark.parametrize("walk", CLOSEST_WALKS)
 @pytest.mark.parametrize("kind", shadow_cases.CLOSEST_KINDS)
 def test_closest_walk_matches_plain_on_closest_cases(cuda, kind, walk):
-    """Both closest walks against the plain version, counters on, on the
-    seeded closest cases (rays whose own cull fails while the tile is
+    """The closest walk at each cluster size against the plain version,
+    counters on, on the seeded closest cases (rays whose own cull fails while the tile is
     live, cull-box face planes, pre-resolved and padded lanes, duplicated
     triangles) at a ragged width."""
     m = procedural_mesh(20_000, pos=(-0.1, 0, -0.6), size=(2, 2, 2))
@@ -413,32 +382,17 @@ def test_closest_walk_split_and_whole_tiles_match_plain(cuda, split_factor,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("walk", CLOSEST_WALKS)
-def test_closest_walk_records_every_tile(cuda, walk):
-    """The closest walks' TIMING variants record each tile once (end >=
-    start, an SM id below the card's count) and give the untimed
-    launch's results; the resources report the cluster's residency."""
-    scene = build_flagship_scene(128, 64, n_tris=20_000, device=cuda)
-    tb = scene.meshes[0].itables
-    ro, rd, tl = (x.to(cuda) for x in _rays(8 * 512 + 77, seed=8))
-    prep = ci.prepare(tb, ro, rd, tl)
-    timing = torch.zeros((prep.n_tiles, 3), dtype=torch.int64, device=cuda)
-    timed = _closest_on_walk("closest_hit", walk, tb, prep, timing=timing)
-    plain = _closest_on_walk("closest_hit", walk, tb, prep)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(timed, plain))
-    t = timing.cpu()
+@pytest.mark.parametrize("name", [n for n in ci.KERNELS if n != "prepass"])
+def test_walk_resources_fit_the_card(cuda, name):
+    """Every walk variant's resources: at least one resident CTA of 512
+    threads an SM, the card's SM count, and for a closest hit at least
+    one resident cluster at each cluster size (none for an any hit)."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    g = 1 if walk == "tile" else walk
-    spread = t[:, 2] >> 16
-    assert (t[:, 0] > 0).all() and (t[:, 1] >= t[:, 0]).all()
-    assert ((t[:, 2] & 0xFFFF) < sms).all() and (t[:, 2] >= 0).all()
-    assert ((spread == 0) if walk == "tile"
-            else (spread >= 1) & (spread <= g)).all()
-    name = "closest_hit_tile_walk" if walk == "tile" else "closest_hit"
-    res = ci.resources(name, cluster=g)
-    assert res["ctas_per_sm"] >= 1 and res["sms"] == sms
-    assert (res["clusters"] >= 1) == (walk != "tile")
+    for g in ci.CLUSTER_SIZES:
+        res = ci.resources(name, cluster=g)
+        assert res["ctas_per_sm"] >= 1 and res["sms"] == sms
+        assert res["registers"] >= 1 and res["local_bytes"] >= 0
+        assert (res["clusters"] >= 1) == (not ci.KERNELS[name].anyhit)
 
 
 @pytest.mark.cuda
@@ -707,11 +661,11 @@ def test_pair_product_kernel_rejects_unsupported_tc(cuda, precision):
 TOOL_SHAPES = [(128, 1024), (256, 512), (512, 1024)]
 # The TF32 flips limit (TF32_MAX_FLIPS) was set from k = 13 readings; at
 # k = 128 with the epilogue the tensor cores' own accumulation moves more
-# column minima past rtol 1e-3 in both forms (and in the first form before
-# the second existed), so that combination has a test of its own below.
+# column minima past rtol 1e-3 (in K9's first form too, before its
+# second existed), so that combination has a test of its own below.
 PAIR_CASES = [
-    (version, precision, epilogue, k, tc, br)
-    for version in (2, 1) for precision in ("highest", "default")
+    (precision, epilogue, k, tc, br)
+    for precision in ("highest", "default")
     for epilogue in (False, True) for k in (13, 128) for tc, br in TOOL_SHAPES
     if not (precision == "default" and epilogue and k == 128)]
 
@@ -725,19 +679,18 @@ def _seeded_pair(cuda, tc, br, k, epilogue):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("version,precision,epilogue,k,tc,br", PAIR_CASES)
-def test_pair_product_forms_match_plain_at_tool_shapes(cuda, version,
-                                                       precision, epilogue, k,
-                                                       tc, br):
-    """Both forms of K9 at three (tc, br) of the tool's configurations, k
+@pytest.mark.parametrize("precision,epilogue,k,tc,br", PAIR_CASES)
+def test_pair_product_forms_match_plain_at_tool_shapes(cuda, precision,
+                                                       epilogue, k, tc, br):
+    """K9 at three (tc, br) of the tool's configurations, k
     13 and 128, over 70 steps of 64 seeded normal tables, against the
     plain version on the card: bit-equal at highest, within the TF32
     limits at default."""
     feats, coef, o_init = _seeded_pair(cuda, tc, br, k, epilogue)
     kw = dict(tc=tc, n_steps=70, precision=precision, epilogue=epilogue)
-    name = mb.pair_name(precision, epilogue, version)
+    name = mb.pair_name(precision, epilogue)
     before = mb.KERNELS[name].launches
-    out = mb.pair_product(feats, coef, o_init, version=version, **kw)
+    out = mb.pair_product(feats, coef, o_init, **kw)
     torch.cuda.synchronize()
     assert mb.KERNELS[name].launches == before + 1
     want = mb.pair_product_plain(feats, coef, o_init, **kw)
@@ -750,23 +703,19 @@ def test_pair_product_forms_match_plain_at_tool_shapes(cuda, version,
 @pytest.mark.cuda
 @pytest.mark.parametrize("tc,br", TOOL_SHAPES)
 def test_tf32_epilogue_at_k128_readings(cuda, tc, br, capsys):
-    """K9 at TF32 with the epilogue at k = 128: both forms run and agree
-    with the plain version on the accepted columns (finite minima, no
-    column accepted by one and not the other), and the TF32 limit still
-    holds for an exactly summed TF32 product and rejects the f32 product.
-    The forms' flip shares are printed, not held to TF32_MAX_FLIPS: the
-    tensor cores' accumulation over 128 terms exceeds it in both forms
-    (PERF.md, section 6)."""
+    """K9 at TF32 with the epilogue at k = 128: it runs and agrees with the
+    plain version on the accepted columns (finite minima, no column
+    accepted by one and not the other), and the TF32 limit still holds
+    for an exactly summed TF32 product and rejects the f32 product. The
+    flip share is printed, not held to TF32_MAX_FLIPS: the tensor cores'
+    accumulation over 128 terms exceeds it (PERF.md, section 6)."""
     feats, coef, o_init = _seeded_pair(cuda, tc, br, 128, True)
     kw = dict(tc=tc, n_steps=70, precision="default", epilogue=True)
     want = mb.pair_product_plain(feats, coef, o_init, **kw)
     how = dict(n_steps=70, epilogue=True)
-    readings = {}
-    for version in mb.VERSIONS:
-        out = mb.pair_product(feats, coef, o_init, version=version, **kw)
-        assert torch.equal(out < mb.T_NONE, want < mb.T_NONE)
-        readings[version] = mb.tf32_disagreement(out, want, feats, coef,
-                                                 **how)[0]
+    out = mb.pair_product(feats, coef, o_init, **kw)
+    assert torch.equal(out < mb.T_NONE, want < mb.T_NONE)
+    reading = mb.tf32_disagreement(out, want, feats, coef, **how)[0]
     real = mb._products
     try:
         mb._products = lambda c, f: torch.einsum(
@@ -780,27 +729,22 @@ def test_tf32_epilogue_at_k128_readings(cuda, tc, br, capsys):
     assert not _tf32_within(f32, want, feats, coef, True)
     with capsys.disabled():
         print(f"\nK9 TF32 epilogue k=128 tc={tc} br={br}: flip share "
-              f"second form {readings[2]:.4f}, first {readings[1]:.4f}, "
-              f"limit {mb.TF32_MAX_FLIPS}")
+              f"{reading:.4f}, limit {mb.TF32_MAX_FLIPS}")
 
 
 @pytest.mark.cuda
 def test_pair_product_forms_reject_what_their_kernels_refuse(cuda):
-    """Each form raises on a tc or br its tiles do not take, on the card,
-    and launches nothing: the second form's tiles are coarser than the
-    first's."""
+    """K9 raises on a tc or br its tiles do not take, on the card, and
+    launches nothing."""
     k = 13
     before = {n: v.launches for n, v in mb.KERNELS.items()}
-    for version, precision, tc, br in ((2, "highest", 16, 128),
-                                       (2, "default", 32, 128),
-                                       (1, "highest", 12, 128),
-                                       (1, "default", 16, 96)):
+    for precision, tc, br in (("highest", 16, 128), ("default", 32, 128)):
         coef = torch.ones((mb.N_TAB, 4 * tc, k), device=cuda)
         feats = torch.ones((k, br), device=cuda)
         o_init = torch.zeros((1, br), device=cuda)
         with pytest.raises(ValueError, match="multiple"):
             mb.pair_product(feats, coef, o_init, tc=tc, n_steps=4,
-                            precision=precision, version=version)
+                            precision=precision)
     with pytest.raises(ValueError, match="multiple"):
         mb.pack_tables(torch.ones((2, 4 * 16, k), device=cuda), 16)
     assert before == {n: v.launches for n, v in mb.KERNELS.items()}

@@ -15,6 +15,9 @@ holds them against the plain versions on a card.
 
 from __future__ import annotations
 
+import itertools
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -412,3 +415,87 @@ def test_super_dist2_is_the_tables_sort_key(scenes):
     want = torch.argsort(key, dim=1, stable=True).to(torch.int32)
     assert torch.equal(prep.torder, want)
     assert torch.equal(prep.counts, live.sum(dim=1).to(torch.int32))
+
+
+# The query entry points the integrator calls, and the kind of walk each
+# must name: (fused tables, any hit, a phase of K6).
+QUERY_ENTRIES = {
+    "closest_hit": (False, False, False),
+    "any_hit": (False, True, False),
+    "any_hit_two_phase": (False, True, True),
+    "intersect_fused_closest": (True, False, False),
+    "intersect_fused_any": (True, True, False),
+}
+
+
+def _requested_variants(entry):
+    """The kernel variants that query entry point `entry` names, over
+    every flag set `integrator._query_flags` gives (useAC, a mesh its root
+    box clips, collectStatistics): the variant of each query it sends to
+    `run_query` / `run_fused_query`, on CPU tensors (which then run the
+    plain version)."""
+    from rendering_tpu_torch.render.integrator import _query_flags
+
+    rng = np.random.default_rng(21)
+    v = rng.uniform(-1, 1, (1100, 3, 3)).astype(np.float32)
+    tb = ci.build_intersect_tables(v, tri_chunk=64)
+    ft = ci.build_fused_tables([v], [False])
+    ro, rd = (torch.from_numpy(x) for x in _rays(300, seed=22))
+    names = []
+
+    def recorder(real, fused):
+        def query(tables, prep, **kw):
+            names.append(ci.variant_name(
+                fused=fused, anyhit=kw["anyhit"],
+                root_filter=kw.get("root_filter", False),
+                collect_stats=kw.get("collect_stats", False),
+                two_phase=kw.get("two_phase", False)))
+            return real(tables, prep, **kw)
+        return query
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ci, "run_query", recorder(ci.run_query, False))
+        mp.setattr(ci, "run_fused_query", recorder(ci.run_fused_query, True))
+        for use_ac, clipped, stats in itertools.product((False, True),
+                                                        repeat=3):
+            flags = _query_flags(types.SimpleNamespace(
+                use_backface_culling=True, use_ac=use_ac,
+                collect_statistics=stats), clipped)
+            if entry == "closest_hit":
+                ci.closest_hit(tb, ro, rd, **flags)
+            elif entry == "any_hit":
+                ci.any_hit(tb, ro, rd, **flags)
+            elif entry == "any_hit_two_phase":
+                ci.any_hit_two_phase(tb, ro, rd, frac=0.5, **flags)
+            else:
+                ci.intersect_fused(ft, ro, rd, mode=entry.rsplit("_", 1)[1],
+                                   **flags)
+    return names
+
+
+@pytest.mark.parametrize("entry", list(QUERY_ENTRIES))
+def test_every_requested_variant_is_a_walk(entry):
+    """Every query an entry point sends names a variant of `KERNELS` of
+    its kind (a closest or any-hit walk over fused tables or not, a phase
+    of K6 or not) with the flags it was asked for; K6 sends two phases a
+    call."""
+    fused, anyhit, two_phase = QUERY_ENTRIES[entry]
+    names = _requested_variants(entry)
+    assert len(names) == 8 * (2 if two_phase else 1)
+    for name in names:
+        k = ci.KERNELS[name]
+        assert isinstance(k, ci.CudaKernel)
+        assert (k.fused, k.anyhit, k.two_phase) == (fused, anyhit, two_phase)
+        assert name == ci.variant_name(
+            anyhit=k.anyhit, fused=k.fused, root_filter=k.root_filter,
+            collect_stats=k.collect_stats, two_phase=k.two_phase)
+    assert {(ci.KERNELS[n].root_filter, ci.KERNELS[n].collect_stats)
+            for n in names} == set(itertools.product((False, True), repeat=2))
+
+
+def test_every_walk_variant_is_requested():
+    """`KERNELS` holds the pre-pass and the walk variants that the query
+    entry points name, and nothing else."""
+    names = set().union(*(_requested_variants(e) for e in QUERY_ENTRIES))
+    assert names == set(ci.KERNELS) - {"prepass"}
+    assert len(names) == 20

@@ -439,22 +439,23 @@ def test_pair_recurrence_plain_is_the_step_order_recurrence(n_steps):
         mb.pair_recurrence(torch.zeros((0, 128)), torch.zeros((1, 128)))
 
 
-@pytest.mark.parametrize("version", [1, 2])
+@pytest.mark.parametrize("epilogue", [False, True])
 @pytest.mark.parametrize("precision", ["highest", "default"])
-def test_pair_product_versions_take_plain_on_cpu(version, precision):
-    """Both forms of K9 compute `pair_product_plain`: on CPU tensors the
-    wrapper returns it and launches nothing; an unknown form raises."""
+def test_pair_product_takes_plain_on_cpu(precision, epilogue):
+    """K9 computes `pair_product_plain`: on CPU tensors the wrapper returns
+    it and launches nothing; an unknown precision raises; its launch count
+    is one of `KERNELS`."""
     tc, br, k = 8, 128, 13
     coef, feats, o_init = (torch.from_numpy(a) for a in _pair_inputs(
-        tc, br, k, True, seed=6))
-    kw = dict(tc=tc, n_steps=5, precision=precision, epilogue=True)
+        tc, br, k, epilogue, seed=6))
+    kw = dict(tc=tc, n_steps=5, precision=precision, epilogue=epilogue)
     counts = {k: v.launches for k, v in mb.KERNELS.items()}
-    got = mb.pair_product(feats, coef, o_init, version=version, **kw)
+    got = mb.pair_product(feats, coef, o_init, **kw)
     assert torch.equal(got, mb.pair_product_plain(feats, coef, o_init, **kw))
     assert counts == {k: v.launches for k, v in mb.KERNELS.items()}
-    with pytest.raises(ValueError, match="version"):
-        mb.pair_product(feats, coef, o_init, version=3, **kw)
-    assert mb.pair_name(precision, True, version) in mb.KERNELS
+    with pytest.raises(ValueError, match="precision"):
+        mb.pair_product(feats, coef, o_init, **dict(kw, precision="tf32"))
+    assert mb.pair_name(precision, epilogue) in mb.KERNELS
 
 
 def test_pair_tiles_and_epilogue_ops_match_the_source():
@@ -473,14 +474,10 @@ def test_pair_tiles_and_epilogue_ops_match_the_source():
     assert mb.pair_epilogue_ops(tc=256, br=1024, n_steps=2) == (
         mb.EPILOGUE_OPS * 256 * 1024 * 2)
     assert int(const("kWgN")) == mb.WG_ROWS
-    assert mb.PAIR_TILES[2, "highest"] == (int(const("kSimtChunk")),
-                                           int(const("kSimtCols")))
-    assert mb.PAIR_TILES[2, "default"] == (
-        int(const("kWgN")), int(const("kWgMaxGroups")) * int(const("kWgM")))
-    assert mb.PAIR_TILES[1, "highest"] == (int(const("kSimtV1Rows")),
-                                           int(const("kSimtV1Cols")))
-    assert mb.PAIR_TILES[1, "default"] == (int(const("kTcV1Rows")),
-                                           int(const("kTcV1Cols")))
+    assert mb.PAIR_TILES == {
+        "highest": (int(const("kSimtChunk")), int(const("kSimtCols"))),
+        "default": (int(const("kWgN")),
+                    int(const("kWgMaxGroups")) * int(const("kWgM")))}
 
 
 # ---- formulas and the tools --------------------------------------------------
@@ -552,6 +549,7 @@ def test_tools_drive_their_probes_on_cpu(tvpu, tkernel):
                           configs=((8, 128, 13, "highest", False),
                                    (16, 128, 13, "default", True)),
                           n_steps=3, reps=1)
+    assert set(raw) == {"grid", "grid_loop", "launch", "pair"}
     assert [r["n_steps"] for r in raw["grid"]] == [1, 8]
     assert [r["us_per_step"] > 0 for r in raw["pair"]] == [True, True]
     with pytest.raises(ValueError, match="no device time"):
@@ -563,15 +561,16 @@ def test_tools_drive_their_probes_on_cpu(tvpu, tkernel):
 
 def test_kernel_tool_reports_both_forms_and_their_bounds(tkernel):
     """microbench_kernel_torch.py measures K8's two forms, the launch probe
-    and K9's two forms; its bounds add the epilogue's SIMT instructions to
+    and K9 in its one form; its bounds add the epilogue's SIMT instructions to
     an f32 product and take the larger beside a TF32 one; its expected
     launch counts follow `measure`'s calls."""
     configs = ((8, 128, 13, "highest", True), (16, 256, 13, "default", False))
     raw = tkernel.measure("cpu", grid_steps=(1, 4), br=128, configs=configs,
                           n_steps=2, reps=1)
     assert [r["form"] for r in raw["grid_loop"]] == ["loop", "loop"]
-    assert [r["version"] for r in raw["pair"]] == [2, 2]
-    assert [r["version"] for r in raw["pair_v1"]] == [1, 1]
+    assert [(r["precision"], r["epilogue"]) for r in raw["pair"]] == [
+        ("highest", True), ("default", False)]
+    assert set(raw) == {"grid", "grid_loop", "launch", "pair"}
     assert {"empty_ctas_ms", "clone_ms", "host_us_copy_ctas"} <= set(
         raw["launch"])
     kw = dict(tc=256, br=1024, k=13, n_steps=2048)
@@ -591,6 +590,27 @@ def test_kernel_tool_reports_both_forms_and_their_bounds(tkernel):
                                      reps=1, host_calls=5)
     assert want == {"grid_overhead": 4 * 2 + 5, "grid_overhead_loop": 4 * 2,
                     "pair_product_highest_epilogue": 2,
-                    "pair_product_v1_highest_epilogue": 2,
-                    "pair_product_default": 2, "pair_product_v1_default": 2,
+                    "pair_product_default": 2,
                     "pair_pack_tf32": 2, "pair_recurrence": 2}
+
+
+def test_bounds_take_the_ports_rates(tkernel):
+    """chip_smoke.py and microbench_kernel_torch.py state their bounds at
+    the port's one definition of the card's rates (ops/microbench.py),
+    and neither defines its own."""
+    import ast
+
+    repo = os.path.dirname(TOOLS)
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rates = ("F32_FLOPS_RATE", "F32_OPS_RATE", "HBM_RATE")
+    assert mb.F32_OPS_RATE == 67e12 / 2 and mb.HBM_RATE == 3.35e12
+    for mod in (smoke, tkernel):
+        assert all(getattr(mod, r) is getattr(mb, r) for r in rates)
+        tree = ast.parse(open(mod.__file__).read())
+        assigned = {t.id for node in ast.walk(tree)
+                    if isinstance(node, ast.Assign) for t in node.targets
+                    if isinstance(t, ast.Name)}
+        assert not assigned & set(rates), mod.__file__

@@ -18,13 +18,13 @@ of rendering_tpu_torch/ops/microbench.py.
    JAX tool's eleven configurations (tools/microbench_kernel.py:145-154,
    the first at highest and default precision, the rest at highest), and
    the four epilogue configurations again at default: the TF32
-   tensor-core price of the pair test beside its f32 SIMT price; in the
-   second form (`pair_product`) and the first (`version=1`). Each row
-   carries its bounds (`pair_bounds`): the product's operations at the
-   data sheet's rate, the f32 form's own ceiling without FMA, and the
-   epilogue's SIMT instructions. The inputs are the JAX tool's (feats 1,
-   coef 1e-4); o_init is 0, or 3.0e38 with the epilogue (the TPU kernel
-   read its output uninitialised; the port takes it as an input).
+   tensor-core price of the pair test beside its f32 SIMT price
+   (`pair_product`). Each row carries its bounds (`pair_bounds`): the
+   product's operations at the data sheet's rate, the f32 form's own
+   ceiling without FMA, and the epilogue's SIMT instructions. The inputs
+   are the JAX tool's (feats 1, coef 1e-4); o_init is 0, or 3.0e38 with
+   the epilogue (the TPU kernel read its output uninitialised; the port
+   takes it as an input).
 
 Each time is the mean of 20 launches after a warm-up, by CUDA events
 with the launches queued behind a ~2 ms spin (`utils.timer.mean_ms`); K9's
@@ -49,17 +49,18 @@ from rendering_tpu_torch.device import (  # noqa: E402
     resolve_device,
 )
 from rendering_tpu_torch.ops import microbench as mb  # noqa: E402
+from rendering_tpu_torch.ops.microbench import (  # noqa: E402
+    F32_FLOPS_RATE,
+    F32_OPS_RATE,
+    HBM_RATE,
+)
 from rendering_tpu_torch.utils.timer import mean_ms  # noqa: E402
 
 REPS = 20
 BR = 1024
-# The card's data-sheet rates (H100 SXM, 700 W): f32 with FMA counted as
-# two operations, f32 instructions issued one by one (a multiply and an
-# add apart, -fmad=false), TF32 tensor cores dense, HBM.
-F32_FLOPS_RATE = 67e12
-F32_OPS_RATE = 67e12 / 2
+# The TF32 tensor cores' dense data-sheet rate (H100 SXM, 700 W); the
+# f32 and HBM rates are the port's (ops/microbench.py).
 TF32_FLOPS_RATE = 495e12
-HBM_RATE = 3.35e12
 HOST_CALLS = 200                # the launch probe's host-timed calls
 GRID_STEPS = (1, 16384, 4096)   # 1 = the empty grid; then the JAX tool's
 N_STEPS = 2048
@@ -166,17 +167,17 @@ def launch_probe(*, device, br: int = BR, reps: int = REPS,
 
 
 def pair_probe(*, device, tc: int, br: int, k: int, precision: str,
-               epilogue: bool, n_steps: int = N_STEPS, reps: int = REPS,
-               version: int = 2) -> dict:
+               epilogue: bool, n_steps: int = N_STEPS, reps: int = REPS
+               ) -> dict:
     feats, coef, o_init = tool_inputs(tc=tc, br=br, k=k, epilogue=epilogue,
                                       device=device)
     ms = mean_ms(mb.pair_product_fn(
         feats, coef, o_init, tc=tc, n_steps=n_steps, precision=precision,
-        epilogue=epilogue, version=version), reps, device)
+        epilogue=epilogue), reps, device)
     bounds = pair_bounds(tc=tc, br=br, k=k, n_steps=n_steps,
                          precision=precision, epilogue=epilogue)
     return {"tc": tc, "br": br, "k": k, "precision": precision,
-            "epilogue": epilogue, "version": version, "n_steps": n_steps,
+            "epilogue": epilogue, "n_steps": n_steps,
             "device": str(device), "ms": ms,
             "us_per_step": ms * 1e3 / n_steps,
             "bytes": pair_bytes(tc=tc, br=br, k=k), **bounds}
@@ -186,17 +187,16 @@ def measure(device, *, grid_steps=GRID_STEPS, br: int = BR,
             configs=CONFIGS, n_steps: int = N_STEPS,
             reps: int = REPS) -> dict:
     """Every grid-overhead, launch and pair-product probe on `device`:
-    `grid`/`grid_loop` K8's two forms, `pair`/`pair_v1` K9's."""
+    `grid`/`grid_loop` K8's two forms, `pair` K9."""
     return {
         "grid": [grid_probe(device=device, n_steps=s, br=br, reps=reps)
                  for s in grid_steps],
         "grid_loop": [grid_probe(device=device, n_steps=s, br=br, reps=reps,
                                  form="loop") for s in grid_steps],
         "launch": launch_probe(device=device, br=br, reps=reps),
-        **{key: [pair_probe(device=device, tc=tc, br=b, k=k, precision=p,
-                            epilogue=e, n_steps=n_steps, reps=reps,
-                            version=v) for tc, b, k, p, e in configs]
-           for key, v in (("pair", 2), ("pair_v1", 1))},
+        "pair": [pair_probe(device=device, tc=tc, br=b, k=k, precision=p,
+                            epilogue=e, n_steps=n_steps, reps=reps)
+                 for tc, b, k, p, e in configs],
     }
 
 
@@ -204,16 +204,15 @@ def expected_launches(*, grid_steps=GRID_STEPS, configs=CONFIGS,
                       reps: int = REPS, host_calls: int = HOST_CALLS) -> dict:
     """The kernel launches one `measure` on a card makes, by launch count
     (`mb.KERNELS`): each timed call runs reps + 1 times (`mean_ms`'s
-    warm-up), the launch probe's host timing host_calls more; the second
-    form's TF32 calls pack their tables first, and its calls without the
-    epilogue end in the recurrence."""
+    warm-up), the launch probe's host timing host_calls more; K9's TF32
+    calls pack their tables first, and its calls without the epilogue end
+    in the recurrence."""
     calls = reps + 1
     out = {"grid_overhead": (len(grid_steps) + 2) * calls + host_calls,
            "grid_overhead_loop": (len(grid_steps) + 2) * calls}
     for _, _, _, p, e in configs:
-        for v in mb.VERSIONS:
-            name = mb.pair_name(p, e, v)
-            out[name] = out.get(name, 0) + calls
+        name = mb.pair_name(p, e)
+        out[name] = out.get(name, 0) + calls
         if p == "default":
             out["pair_pack_tf32"] = out.get("pair_pack_tf32", 0) + calls
         if not e:
@@ -225,8 +224,7 @@ def summary(raw: dict, card_line: str) -> dict:
     """The tool's JSON from `measure`'s results, which must come from a
     card: the launch (the one-CTA grid) and the cost per further CTA, and
     each product's time per step and rate."""
-    for r in (*raw["grid"], *raw["grid_loop"], raw["launch"], *raw["pair"],
-              *raw["pair_v1"]):
+    for r in (*raw["grid"], *raw["grid_loop"], raw["launch"], *raw["pair"]):
         if not r["device"].startswith("cuda"):
             raise ValueError(f"no device time from a {r['device']} run")
 
@@ -245,9 +243,9 @@ def summary(raw: dict, card_line: str) -> dict:
         "grid_ms": grid,
         "grid_loop_ms": loop,
         "launch": raw["launch"],
-        **{key: [dict(r, tflops=r["flops"] / (r["ms"] * 1e-3) / 1e12,
-                      bound_share=r["bound_ms"] / r["ms"]) for r in raw[key]]
-           for key in ("pair", "pair_v1")},
+        "pair": [dict(r, tflops=r["flops"] / (r["ms"] * 1e-3) / 1e12,
+                      bound_share=r["bound_ms"] / r["ms"])
+                 for r in raw["pair"]],
     }
 
 
@@ -262,8 +260,8 @@ def main() -> int:
               f"{r['ms']:.5f} ms ({r['ms'] / r['n_steps'] * 1e6:.1f} ns/step)")
     print(f"per further CTA {out['per_cta_ns']:.3f} ns; per loop step "
           f"{out['per_step_ns']:.3f} ns; launch: {json.dumps(out['launch'])}")
-    for r in (*out["pair"], *out["pair_v1"]):
-        print(f"mm v{r['version']} tc={r['tc']} br={r['br']} k={r['k']} prec="
+    for r in out["pair"]:
+        print(f"mm tc={r['tc']} br={r['br']} k={r['k']} prec="
               f"{r['precision']} epi={r['epilogue']}: {r['ms']:.5f} ms, "
               f"{r['us_per_step']:.3f} us/step ({r['tflops']:.2f} TFLOP/s "
               f"nominal; bound {r['bound_ms']:.5f} ms, "

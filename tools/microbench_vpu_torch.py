@@ -14,7 +14,7 @@ element, the block repeated 64 times):
   an H100 SXM);
 * unfused: K7 with a multiply and an add per step, each its own f32
   instruction; its rate (2 operations per step) is the issue rate that
-  chip_smoke.py's F32_OPS_RATE assumes for the intersection kernels,
+  ops/microbench.py's F32_OPS_RATE assumes for the intersection kernels,
   which are built with -fmad=false;
 * triton: the fused chains through Triton's code generator, the second,
   independent method (the JAX tool's XLA twin); `methodology_ratio` is
